@@ -22,6 +22,25 @@ Phases, each reported on its own line:
      versions), the decoded actions side by side and the largest logit gap,
      and one step of each path under torch.profiler (device time by
      kernel, device busy share).
+  4. render: the serving renderer of configs/serve.yaml (128 x 128 frame,
+     occupancy sampling from the voxel channel and field probes, 16 + 8
+     samples, RayPlan culling, W8A8 int8 field 64 -> 5 x 512, static
+     activation scales) on the policy's own d0 and the voxelizer's
+     occupancy channel, seen from the serving viewpoint of bench.py. Field
+     weights random from a seeded generator. Setup (prepare,
+     calibrate_int8_act, plan_rays), then its four kernels against their
+     plain versions on the frame's first tile (ray_expand, corner_lerp,
+     fused_resnetfc_int8 and fused_gather_resnetfc_int8 under static and
+     dynamic scales), then FRAME_WARMUP untimed and FRAMES timed frames with
+     gather_fused_mlp false (serve.yaml as written) and true: p50 per frame,
+     delivered and computed rays/s, active share, peak memory, launches per
+     frame (2 per tile for each kernel of the path). The frames of the two
+     settings must be equal, and the kernel frame must stay within RGB_TOL
+     (largest gap) and PSNR_MIN of the plain field's (mlp_backend "xla")
+     frame. Three planted glue faults (the fine pass dropped, the field's
+     rgb halved, sigma read in ray-major instead of sample-major order)
+     must each fail that frame check. One frame of each setting runs under
+     torch.profiler.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -35,7 +54,8 @@ import time
 from pathlib import Path
 
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # tensor-core bf16; fp32 SIMT
+# tensor-core bf16 and int8 (dense), fp32 SIMT; H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
 STEPS = 10
 # untimed steps first: early in a process the H100 act step alternates
 # between ~20 and ~24 ms and settles after some 50 steps
@@ -43,6 +63,32 @@ WARMUP = 60
 STATS_TOL = 1e-5   # stats error, of the channel's softmax denominator
 STATS_SLAB = 2048  # rows per program of the stats kernel
 ACT_TOL = 0.1   # logit gap of the kernel path vs the plain path, of the logit scale
+# the renderer: section `renderer:` of configs/serve.yaml (tests hold the two equal)
+SERVE_RENDERER = dict(image_width=128, image_height=128, z_near=1.2, z_far=4.0,
+                      n_coarse=16, n_fine=8, n_fine_depth=0, ray_chunk_size=512,
+                      sampling_mode="occupancy", occ_tighten=True, use_ray_plan=True,
+                      occ_source="auto")
+SERVE_FIELD = dict(d_latent=64, d_embed=512, d_hidden=512, n_blocks=5, combine_layer=3,
+                   compute_dtype="bfloat16", mlp_backend="pallas_int8",
+                   int8_static_act=True, coord_bounds=(-0.1, -0.3, -0.2, 0.8, 0.7, 0.7),
+                   mask_outside=True)
+FRAMES = 10
+FRAME_WARMUP = 5
+# fused MLP kernels vs their plain versions: the largest gap within 2^-4 of
+# each output's largest |value|, and at most MLP_SHARE of the outputs more
+# than one bf16 ulp of that scale (2^-8) apart. An fp32 sum that rounds one
+# ulp apart can move a bf16 activation, then an int8 code, and the step
+# cascades through the blocks in a few rows: the plain version itself moves
+# by as much when its fp32 sums run in another order (the kernel lines'
+# plain_reorder_* fields measure that)
+MLP_TOL = 2 ** -4
+MLP_SHARE = 1e-3
+# the int8 kernel frame vs the plain field's frame, same weights and draws:
+# the largest |rgb gap| (0.0225 on an H100 80GB HBM3 at 700 W, against a
+# frame mean of 0.059) and the PSNR between the two (55.3 dB there; 45 dB
+# is an RMS gap of 0.0056, under a tenth of the mean pixel)
+RGB_TOL = 0.04
+PSNR_MIN = 45.0
 
 
 def fail(msg):
@@ -80,6 +126,358 @@ def bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def random_field_state(torch, renderer, seed):
+    """Every field weight random from a seeded generator, std fan_in^-1/2
+    (a flax init zeroes each block's second dense, which would leave half
+    the int8 products empty), biases zero, the density bias 1.0 so the
+    frame is not empty (bench.py does the same)."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in renderer.field.state_dict().items():
+        if v.dim() == 2:
+            fan_in = v.shape[0] if k.endswith("lin_out_kernel") else v.shape[1]
+            sd[k] = torch.randn(v.shape, generator=g) * fan_in ** -0.5
+        else:
+            sd[k] = torch.zeros(v.shape)
+    sd["mlp_coarse.lin_out_bias"][3] = 1.0
+    return sd
+
+
+def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
+    """Phase 4: the serving renderer of configs/serve.yaml on the policy's d0."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch.data.synthetic import _look_at
+    from real_robot_nerf_actor_tpu_torch.models import NerfFieldConfig
+    from real_robot_nerf_actor_tpu_torch.ops import resnetfc_cuda as rf
+    from real_robot_nerf_actor_tpu_torch.ops.grid_sample import expand_corners
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
+    from real_robot_nerf_actor_tpu_torch.ops.occupancy import sample_occupancy, tighten_rays
+    from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import (
+        ray_expand, ray_expand_plain)
+    from real_robot_nerf_actor_tpu_torch.ops.sampling import sample_importance_z
+    from real_robot_nerf_actor_tpu_torch.render import NeuralRenderer, RendererConfig, psnr
+
+    d0 = d0.float().contiguous()
+    t0 = time.perf_counter()
+
+    def make(renderer_kw=None, **field_kw):
+        cfg = RendererConfig(field=NerfFieldConfig(**dict(SERVE_FIELD, **field_kw)),
+                             **dict(SERVE_RENDERER, **(renderer_kw or {})))
+        return NeuralRenderer(cfg, device=dev)
+
+    r = make()
+    sd = random_field_state(torch, r, seed=1)
+    r.load_field(sd)
+    center = np.array([0.35, 0.2, 0.1], np.float32)
+    pose = _look_at(center + np.array([0.9, -0.75, 0.85], np.float32), center)[None]
+    focal = 76.18 * 128.0 / 80.0
+    cuda_gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+    occ = r.prepare(d0, occupancy=occupancy, generator=cuda_gen(2))
+    rays_frame = r.frame_rays(pose, focal)
+    scales = r.calibrate_int8_act(d0, rays_frame, generator=cuda_gen(3))
+    plan = r.plan_rays(occ, pose, focal)
+    torch.cuda.synchronize()
+    cfg = r.cfg
+    tile = min(cfg.render_tile, plan.idx.numel())
+    n_tiles = plan.idx.numel() // tile
+    emit("render_setup", setup_s=time.perf_counter() - t0, d0_shape=list(d0.shape),
+         occupied_cells=int(occ.pooled.sum().item()), aabb=occ.aabb.tolist(),
+         static_scales=list(scales), n_active=plan.n_active, n_total=plan.n_total,
+         capacity=plan.idx.numel(), tile=tile, tiles=n_tiles, card=card)
+    if not 0 < plan.n_active < plan.n_total:
+        fail(f"render: the plan keeps {plan.n_active} of {plan.n_total} rays")
+
+    # ---- the four kernels on the frame's first tile, against their plain versions
+    bounds = torch.as_tensor(SERVE_FIELD["coord_bounds"], dtype=torch.float32, device=dev)
+    exp = expand_corners(d0.to(torch.bfloat16))
+    rows_all = exp.reshape(-1, exp.shape[-1])
+    tile_rays = tighten_rays(rays_frame[plan.idx[:tile].clamp(max=plan.n_total - 1)],
+                             occ.aabb, bounds).contiguous()
+    g = cuda_gen(4)
+    z_coarse = sample_occupancy(tile_rays, occ.pooled, cfg.n_coarse, bounds,
+                                cfg.occ_probes, cfg.occ_floor, generator=g)
+    # the fine pass's importance samples, drawn as render_rays draws them:
+    # from the weights of this tile's coarse pass
+    w_coarse = r._eval_pass(exp, tile_rays, z_coarse, True, pre_expanded=True,
+                            compact=r._late_embed_active()).weights
+    z_by_pass = {"coarse": z_coarse,
+                 "fine": sample_importance_z(z_coarse, w_coarse, cfg.n_fine, generator=g)}
+    packed = r._packed
+    kp = packed["kernel"]
+    wbytes = sum(v.numel() * v.element_size() for v in kp.values()
+                 if isinstance(v, torch.Tensor))
+    f = SERVE_FIELD
+    dims = tuple(d0.shape[1:4])
+    nb, cl = f["n_blocks"], f["combine_layer"]
+    int8_ops, bf16_ops = rf.mlp_ops_per_row(f["d_hidden"], f["n_blocks"], f["combine_layer"],
+                                            kp["k_in"], kp["k_lat"], True)
+    static_t = r._act_scales_t
+    for pass_, z in z_by_pass.items():
+        z = z.contiguous()
+        k = z.shape[1]
+        n = k * tile
+        # ray_expand: bit-equal to the torch ops (round-to-nearest intrinsics)
+        got = ray_expand(tile_rays, z, dims, SERVE_FIELD["coord_bounds"])
+        want = ray_expand_plain(tile_rays, z, dims, SERVE_FIELD["coord_bounds"])
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"ray_expand {pass_}: differs from its plain version ({err})")
+        aux, w8, flat = got[0].reshape(-1, n), got[1].reshape(8, n), got[2].reshape(n)
+        ms = median_ms(torch, lambda: ray_expand(tile_rays, z, dims,
+                                                 SERVE_FIELD["coord_bounds"]), 20)
+        plain_ms = median_ms(torch, lambda: ray_expand_plain(
+            tile_rays, z, dims, SERVE_FIELD["coord_bounds"]), 5)
+        nbytes = tile * 8 * 4 + n * 4 + n * (aux.shape[0] * 2 + 8 * 4 + 4)
+        b_ms, b_by = bound(120.0 * n, nbytes, "float32")
+        emit("kernel", name="ray_expand", shape=[tile, k], dtype="float32",
+             calls_per_frame=n_tiles, max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
+             library_ms=None, bound_ms=b_ms, bound_by=b_by, card=card)
+        record("ray_expand", n_tiles, err, ms, plain_ms, b_ms, b_by, None)
+
+        # corner_lerp on the gathered rows: one bf16 ulp (<= 2^-7 of each value)
+        rows = rows_all[flat.long()]
+        got = corner_lerp(rows, w8)
+        want = corner_lerp_plain(rows, w8).float()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        if not ((got.float() - want).abs() <= 2 ** -7 * want.abs() + 1e-6).all():
+            fail(f"corner_lerp {pass_}: more than one bf16 ulp from its plain version")
+        no_last = corner_lerp_plain(rows, w8 * torch.tensor([1.0] * 7 + [0.0], device=dev)[:, None])
+        if not ((no_last.float() - want).abs() > 2 ** -7 * want.abs() + 1e-6).any():
+            fail(f"corner_lerp {pass_}: the check does not see a dropped corner")
+        ms = median_ms(torch, lambda: corner_lerp(rows, w8), 20)
+        plain_ms = median_ms(torch, lambda: corner_lerp_plain(rows, w8), 5)
+        rows3, w_lib = rows.view(n, 8, -1), w8.T.unsqueeze(1).to(torch.bfloat16).contiguous()
+        lib_ms = median_ms(torch, lambda: torch.bmm(w_lib, rows3), 20)
+        nbytes = rows.numel() * 2 + w8.numel() * 4 + got.numel() * 2
+        b_ms, b_by = bound(16.0 * got.numel(), nbytes, "float32")
+        emit("kernel", name="corner_lerp", shape=list(rows.shape), dtype="bfloat16",
+             calls_per_frame=n_tiles, max_abs_err=err, tol="2^-7 of each value", ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, card=card)
+        record("corner_lerp", n_tiles, err, ms, plain_ms, b_ms, b_by, lib_ms)
+
+        zi = r._assemble_zi_int8(exp, tile_rays, z)[0]
+        # the fused MLP kernels, static (the main path) and dynamic scales
+        t_ops = n * (int8_ops / PEAK_FLOPS["int8"] + bf16_ops / PEAK_FLOPS["bfloat16"])
+        for mode, sc in (("static", static_t), ("dynamic", None)):
+            calls = n_tiles if mode == "static" else 0
+            gkw = dict(d_latent=f["d_latent"], n_blocks=nb, combine_layer=cl, act_scales=sc)
+            got = rf.fused_resnetfc_int8(zi, packed, nb, cl, act_scales=sc)
+            want = rf.fused_resnetfc_int8_plain(zi, packed, nb, cl, act_scales=sc)
+            torch.cuda.synchronize()
+            err, tol, over = mlp_err(got, want)
+            wrong = rf.fused_resnetfc_int8_plain(zi, packed, nb, cl - 1, act_scales=sc)
+            wrong_err, _, wrong_over = mlp_err(wrong, want)
+            dot32 = rf._dot         # the plain version with its sums in float64
+            rf._dot = lambda a, w: (a.double() @ w.double()).float()
+            reorder = rf.fused_resnetfc_int8_plain(zi, packed, nb, cl, act_scales=sc)
+            rf._dot = dot32
+            reorder_err, _, reorder_over = mlp_err(reorder, want)
+            if not (err <= tol and over <= MLP_SHARE):
+                fail(f"fused_resnetfc_int8 {pass_} {mode}: error {err} (tolerance {tol}), "
+                     f"{over} of the outputs over one ulp (at most {MLP_SHARE})")
+            if not (wrong_err > tol or wrong_over > MLP_SHARE):
+                fail(f"fused_resnetfc_int8 {pass_} {mode}: the tolerance does not see "
+                     f"the block-2 injection dropped ({wrong_err})")
+            ms = median_ms(torch, lambda: rf.fused_resnetfc_int8(zi, packed, nb, cl, act_scales=sc), 10)
+            plain_ms = median_ms(torch, lambda: rf.fused_resnetfc_int8_plain(
+                zi, packed, nb, cl, act_scales=sc), 3)
+            nbytes = zi.numel() * 2 + wbytes + n * (128 + f["d_hidden"]) * 2
+            b_ms = max(t_ops, nbytes / PEAK_BYTES_PER_S) * 1e3
+            b_by = "operations" if t_ops > nbytes / PEAK_BYTES_PER_S else "bytes"
+            emit("kernel", name="fused_resnetfc_int8", shape=[n, 128], scales=mode,
+                 calls_per_frame=calls, max_abs_err=err, tol=tol, share_over_ulp=over,
+                 share_tol=MLP_SHARE, plain_reorder_err=reorder_err,
+                 plain_reorder_share_over_ulp=reorder_over, injection_dropped_err=wrong_err,
+                 injection_dropped_share_over_ulp=wrong_over, ms=ms, plain_ms=plain_ms,
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by, card=card)
+            if calls:
+                record("fused_resnetfc_int8", calls, err, ms, plain_ms, b_ms, b_by, None)
+
+            unfused = got
+            got = rf.fused_gather_resnetfc_int8(rows_all, flat, w8, aux, packed, **gkw)
+            want = rf.fused_gather_resnetfc_int8_plain(rows_all, flat, w8, aux, packed,
+                                                       **gkw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, unfused)):
+                fail(f"fused_gather_resnetfc_int8 {pass_} {mode}: differs from "
+                     "ray_expand -> corner_lerp -> fused_resnetfc_int8")
+            err, tol, over = mlp_err(got, want)
+            if not (err <= tol and over <= MLP_SHARE):
+                fail(f"fused_gather_resnetfc_int8 {pass_} {mode}: error {err} (tolerance "
+                     f"{tol}), {over} of the outputs over one ulp")
+            ms = median_ms(torch, lambda: rf.fused_gather_resnetfc_int8(
+                rows_all, flat, w8, aux, packed, **gkw), 10)
+            plain_ms = median_ms(torch, lambda: rf.fused_gather_resnetfc_int8_plain(
+                rows_all, flat, w8, aux, packed, **gkw), 3)
+            nbytes = n * (rows_all.shape[1] * 2 + 4 + 8 * 4 + aux.shape[0] * 2) + wbytes \
+                + n * (128 + f["d_hidden"]) * 2
+            b_ms = max(t_ops, nbytes / PEAK_BYTES_PER_S) * 1e3
+            b_by = "operations" if t_ops > nbytes / PEAK_BYTES_PER_S else "bytes"
+            emit("kernel", name="fused_gather_resnetfc_int8", shape=[n, rows_all.shape[1]],
+                 scales=mode,
+                 calls_per_frame=calls, max_abs_err=err, tol=tol, share_over_ulp=over,
+                 share_tol=MLP_SHARE, equals_unfused=True,
+                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                 card=card)
+            if calls:
+                record("fused_gather_resnetfc_int8", calls, err, ms, plain_ms, b_ms, b_by,
+                       None)
+    del exp, rows_all, rows, zi
+
+    # ---- frames: serve.yaml as written, then gather_fused_mlp = true
+    counters = (ray_expand, corner_lerp, rf.fused_resnetfc_int8,
+                rf.fused_gather_resnetfc_int8)
+
+    def frames(rend, seed):
+        """FRAME_WARMUP untimed, FRAMES timed frames; the last frame's output,
+        the frame times and the launches of the timed frames."""
+        for i in range(FRAME_WARMUP):
+            rend.render_image(d0, pose, focal, generator=cuda_gen(seed), occ=occ, plan=plan)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        times = []
+        for i in range(FRAMES):
+            t = time.perf_counter()
+            out = rend.render_image(d0, pose, focal, generator=cuda_gen(seed), occ=occ,
+                                    plan=plan)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        launches = {c.__name__: c.launches for c in counters}
+        return out, times, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    r_gf = make(gather_fused_mlp=True)
+    r_gf.load_field(sd)
+    r_gf._int8_act_scales, r_gf._act_scales_t = r._int8_act_scales, r._act_scales_t
+    outs = {}
+    for label, rend, on_path in (("unfused", r, ("ray_expand", "corner_lerp",
+                                                 "fused_resnetfc_int8")),
+                                 ("gather_fused", r_gf, ("ray_expand",
+                                                         "fused_gather_resnetfc_int8"))):
+        out, times, launches, peak = frames(rend, 100)
+        outs[label] = out
+        per_frame = {k: v / FRAMES for k, v in launches.items()}
+        p50 = statistics.median(times)
+        emit("render", gather_fused_mlp=label == "gather_fused", frames=FRAMES,
+             p50_ms=p50, frame_ms=times, delivered_rays_per_s=plan.n_total / p50 * 1e3,
+             computed_rays_per_s=plan.n_active / p50 * 1e3,
+             active_share=plan.n_active / plan.n_total, launches=launches,
+             launches_per_frame=per_frame, peak_mem_gb=peak, card=card)
+        want = {k: (2 * n_tiles if k in on_path else 0) for k in per_frame}
+        if per_frame != want:
+            fail(f"render {label}: launches per frame {per_frame}, want {want}")
+        for k in on_path:
+            if k != "ray_expand" or label == "unfused":
+                summary[k]["launches"] = launches[k]
+        for name, x in zip(("rgb", "embed", "depth"), out):
+            if not torch.isfinite(x).all():
+                fail(f"render {label}: non-finite {name}")
+        hw = (cfg.image_height, cfg.image_width)
+        if tuple(out[0].shape) != hw + (3,) or tuple(out[1].shape) != hw + (f["d_embed"],):
+            fail(f"render {label}: frame shapes {tuple(out[0].shape)}, {tuple(out[1].shape)}")
+
+    gaps = {name: (a - b).abs().max().item()
+            for name, a, b in zip(("rgb", "embed", "depth"), outs["unfused"],
+                                  outs["gather_fused"])}
+    # the plain field (mlp_backend "xla"), same weights, draws, occupancy, plan
+    r_x = make(mlp_backend="xla")
+    r_x.load_field(sd)
+    out_x = r_x.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)
+    rgb_x = out_x[0]
+
+    def frame_check(rgb):
+        """(largest |rgb gap|, PSNR dB) against the plain field's frame, and
+        whether both are within their limits."""
+        gap, db = (rgb - rgb_x).abs().max().item(), psnr(rgb, rgb_x).item()
+        return gap, db, gap <= RGB_TOL and db >= PSNR_MIN
+
+    rgb_gap, rgb_db, rgb_ok = frame_check(outs["unfused"][0])
+    # planted faults in the renderer's glue around the kernels: each must
+    # fail the frame check
+    r_coarse = make(renderer_kw=dict(n_fine=0))        # the fine pass dropped
+    r_coarse.load_field(sd)
+    r_coarse._int8_act_scales, r_coarse._act_scales_t = scales, static_t
+    field_out = r._eval_points_fused_int8
+    faults = {"fine_pass_dropped": lambda: r_coarse.render_image(
+        d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)}
+
+    def with_field_fault(fault):
+        def run():
+            r._eval_points_fused_int8 = lambda *a: fault(*field_out(*a))
+            try:
+                return r.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ,
+                                      plan=plan)
+            finally:
+                del r._eval_points_fused_int8
+        return run
+
+    faults["rgb_halved"] = with_field_fault(lambda rgb, sig, h: (0.5 * rgb, sig, h))
+    faults["sigma_ray_major"] = with_field_fault(
+        lambda rgb, sig, h: (rgb, sig.T.reshape(sig.shape), h))
+    fault_checks = {}
+    for name, run in faults.items():
+        gap, db, ok = frame_check(run()[0])
+        fault_checks[name] = {"max_rgb_gap": gap, "psnr_db": db, "passes_check": ok}
+    lit = rgb_x.amax().item()
+    emit("render_compare", gather_fused_vs_unfused_max_gap=gaps,
+         kernel_vs_xla_max_rgb_gap=rgb_gap, rgb_tol=RGB_TOL,
+         kernel_vs_xla_psnr_db=rgb_db, psnr_min_db=PSNR_MIN,
+         kernel_vs_xla_depth_gap=(outs["unfused"][2] - out_x[2]).abs().max().item(),
+         xla_rgb_max=lit, xla_rgb_mean=rgb_x.mean().item(), planted_faults=fault_checks,
+         card=card)
+    if any(v > 1e-6 for v in gaps.values()):
+        fail(f"render: the gather-fused frame differs from the unfused one: {gaps}")
+    if not rgb_ok:
+        fail(f"render: kernel frame vs plain field frame, rgb gap {rgb_gap} (at most "
+             f"{RGB_TOL}), PSNR {rgb_db} dB (at least {PSNR_MIN})")
+    for name, c in fault_checks.items():
+        if c["passes_check"]:
+            fail(f"render: the frame check does not see the planted fault {name}: {c}")
+    if not lit > 0.05:
+        fail(f"render: the frame is empty (largest rgb {lit})")
+
+    for label, rend in (("unfused", r), ("gather_fused", r_gf)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            rend.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type != torch.autograd.DeviceType.CPU
+                and e.self_device_time_total > 0]
+        device_ms = sum(x[1] for x in rows)
+        rows.sort(key=lambda x: -x[1])
+        ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                  if e.key in ("expand_corners",)}
+        emit("render_profile", gather_fused_mlp=label == "gather_fused",
+             frame_wall_ms=wall_ms, device_ms=device_ms,
+             device_busy_share=device_ms / wall_ms, ranges_device_ms=ranges,
+             device_events=sum(x[2] for x in rows),
+             top=[{"name": nm[:80], "ms": ms, "count": c} for nm, ms, c in rows[:15]],
+             card=card)
+
+
+def mlp_err(got, want):
+    """(largest gap, tolerance MLP_TOL of the largest |output|) over out and
+    hidden, and the share of outputs more than one bf16 ulp of that scale
+    (2^-8) apart."""
+    errs, tols, over = [], [], []
+    for a, b in zip(got, want):
+        gap = (a.float() - b.float()).abs()
+        scale = b.float().abs().max().item()
+        errs.append(gap.max().item())
+        tols.append(MLP_TOL * scale)
+        over.append((gap > 2 ** -8 * scale).float().mean().item())
+    worst = max(range(len(errs)), key=lambda i: errs[i] / max(tols[i], 1e-30))
+    return errs[worst], tols[worst], max(over)
 
 
 def main():
@@ -377,7 +775,10 @@ def main():
              top=[{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:15]],
              card=card)
 
-    # ------------------------------------------------------- 4. summary
+    # ----------------------------------------------------------- 4. render
+    render_phase(torch, np, dev, card, out_on[3], vox[0, ..., -1], summary, record)
+
+    # ------------------------------------------------------- 5. summary
     info = {
         "flash_attention": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/flash_attention.cu",
                             "real_robot_nerf_actor_tpu/ops/attention_pallas.py:70"),
@@ -385,6 +786,15 @@ def main():
                       "real_robot_nerf_actor_tpu/ops/conv3d_pallas.py:46"),
         "spatial_stats_3d": ("triton", "real_robot_nerf_actor_tpu_torch/ops/stats_cuda.py",
                              "real_robot_nerf_actor_tpu/ops/stats_pallas.py:59"),
+        "corner_lerp": ("triton", "real_robot_nerf_actor_tpu_torch/ops/lerp_cuda.py",
+                        "real_robot_nerf_actor_tpu/ops/lerp_pallas.py:59"),
+        "ray_expand": ("triton", "real_robot_nerf_actor_tpu_torch/ops/ray_expand_cuda.py",
+                       "real_robot_nerf_actor_tpu/ops/ray_expand_pallas.py:98"),
+        "fused_resnetfc_int8": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/resnetfc_int8.cu",
+                                "real_robot_nerf_actor_tpu/ops/resnetfc_pallas.py:230"),
+        "fused_gather_resnetfc_int8": (
+            "cuda", "real_robot_nerf_actor_tpu_torch/csrc/resnetfc_int8.cu",
+            "real_robot_nerf_actor_tpu/ops/resnetfc_pallas.py:444"),
     }
     kernels = []
     for name, (route, source, replaces) in info.items():

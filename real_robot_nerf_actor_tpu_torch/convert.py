@@ -15,6 +15,9 @@ layout:
   `bias`, `pos_encoding`, `latents`       -> as they are
   `pallas_kernel` / `pallas_bias`         -> as they are: the k3 kernel takes
       the flax (3, 3, 3, Cin, Cout) layout directly
+  `lin_out_kernel` / `lin_out_bias`       -> as they are: the NeRF field's
+      ResnetFC declares them as raw params, (d_hidden, d_out), in both
+      packages
 
 Inputs are numpy arrays (or anything `np.asarray` takes); no JAX needed.
 """

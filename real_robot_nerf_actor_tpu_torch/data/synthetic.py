@@ -1,5 +1,5 @@
 """Synthetic scene + keyframe demo (counterpart of the JAX package's
-`data/synthetic.py`, the parts the act loop uses).
+`data/synthetic.py`, the parts the act loop and the serving render use).
 
 A table plane plus a few coloured boxes inside the scene bounds, and a
 grasp-like keyframe trajectory above box 0: the same numpy draws as the JAX
@@ -27,6 +27,19 @@ class SyntheticScene:
     table_z: float = 0.0
     table_color: np.ndarray = None  # (3,) in [0, 1]
     bounds: np.ndarray = None       # (6,)
+
+
+def _look_at(eye: np.ndarray, target: np.ndarray, up=(0, 0, 1.0)) -> np.ndarray:
+    """OpenGL camera-to-world pose: camera looks down -z toward target."""
+    fwd = target - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    z = -fwd
+    x = np.cross(np.asarray(up, np.float64), z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = x, y, z, eye
+    return pose
 
 
 def make_synthetic_scene(seed: int = 0, n_points: int = 60000,

@@ -1,5 +1,9 @@
-"""The voxel policy: PerceiverIO and its blocks."""
+"""The voxel policy (PerceiverIO and its blocks) and the NeRF field."""
+from real_robot_nerf_actor_tpu_torch.models.nerf_field import (
+    NerfFieldConfig, VoxelNerfField)
 from real_robot_nerf_actor_tpu_torch.models.perceiver import (
     PerceiverConfig, PerceiverIO)
+from real_robot_nerf_actor_tpu_torch.models.resnetfc import ResnetFC
 
-__all__ = ["PerceiverConfig", "PerceiverIO"]
+__all__ = ["NerfFieldConfig", "PerceiverConfig", "PerceiverIO", "ResnetFC",
+           "VoxelNerfField"]

@@ -74,6 +74,8 @@ def variance_scaling_(w: torch.Tensor, spec: InitSpec, fan_in: int,
     if dist == "uniform":
         lim = math.sqrt(3.0 * var)
         w.uniform_(-lim, lim, generator=generator)
+    elif dist == "normal":
+        w.normal_(0.0, math.sqrt(var), generator=generator)
     elif dist == "truncated_normal":
         # flax: stddev of a normal truncated at +-2 sigma, corrected
         std = math.sqrt(var) / 0.87962566103423978

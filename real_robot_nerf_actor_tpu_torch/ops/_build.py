@@ -36,6 +36,16 @@ _SIGNATURES = {
         "conv3d_k3_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_int, ctypes.c_void_p],
     },
+    "resnetfc_int8": {
+        # zi, 10 weight/scale pointers, out, hidden; n, d_latent, n_aux,
+        # d_hidden, n_blocks, combine_layer, k_in, k_lat, quantized; stream
+        "resnetfc_int8_fwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+        + [ctypes.c_void_p],
+        # vox, flat, w8, aux, 10 weight/scale pointers, out, hidden; the same
+        # ints and vox_f32; stream
+        "gather_resnetfc_int8_fwd": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+        + [ctypes.c_void_p],
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -93,3 +93,58 @@ def test_configs_load_like_jax(path, section):
         assert load_config(PerActConfig, str(REPO / path)) == ours
     ours = apply_override(ours, "model.conv_backend", "pallas")
     assert ours.model.conv_backend == "pallas"
+
+
+def test_render_wrappers_refuse_non_cpu_non_cuda_tensors():
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
+    from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import ray_expand
+    from real_robot_nerf_actor_tpu_torch.ops.resnetfc_cuda import (
+        fused_gather_resnetfc_int8, fused_resnetfc_int8)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        corner_lerp(torch.empty((4, 64), **meta), torch.empty((8, 4), **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        ray_expand(torch.empty((256, 8), **meta), torch.empty((256, 2), **meta),
+                   (4, 4, 4), (0, 0, 0, 1, 1, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_resnetfc_int8(torch.empty((4, 128), **meta), {})
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_gather_resnetfc_int8(torch.empty((4, 64), **meta),
+                                   torch.empty(4, dtype=torch.int32, **meta),
+                                   torch.empty((8, 4), **meta),
+                                   torch.empty((24, 4), **meta), {}, d_latent=8)
+
+
+@pytest.mark.parametrize("path", ["configs/serve.yaml", "configs/nerfact.yaml"])
+def test_nerfact_configs_load_like_jax(path):
+    """The whole file (peract, renderer, lambda_*) into NerfActConfig."""
+    yaml = pytest.importorskip("yaml")
+    from real_robot_nerf_actor_tpu.train.nerfact import NerfActConfig as JaxCfg
+    from real_robot_nerf_actor_tpu.utils.config import from_dict as jax_from_dict
+    from real_robot_nerf_actor_tpu.utils.config import to_dict as jax_to_dict
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig
+    from real_robot_nerf_actor_tpu_torch.utils.config import load_config, to_dict
+    data = yaml.safe_load((REPO / path).read_text())
+    ours = load_config(NerfActConfig, str(REPO / path))
+    assert to_dict(ours) == jax_to_dict(jax_from_dict(JaxCfg, data))
+    if path.endswith("serve.yaml"):
+        f = ours.renderer.field
+        assert (f.mlp_backend, f.int8_static_act, f.mask_outside) == (
+            "pallas_int8", True, True)
+        assert ours.renderer.use_ray_plan and ours.renderer.occ_source == "auto"
+
+
+def test_chip_smoke_renders_serve_yaml():
+    """chip_smoke.py's renderer config (the card machine has no PyYAML) is
+    the `renderer:` section of configs/serve.yaml."""
+    yaml = pytest.importorskip("yaml")
+    import importlib.util
+    from real_robot_nerf_actor_tpu_torch.models import NerfFieldConfig
+    from real_robot_nerf_actor_tpu_torch.render import RendererConfig
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig
+    from real_robot_nerf_actor_tpu_torch.utils.config import load_config
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ours = RendererConfig(field=NerfFieldConfig(**cs.SERVE_FIELD), **cs.SERVE_RENDERER)
+    assert ours == load_config(NerfActConfig, str(REPO / "configs/serve.yaml")).renderer

@@ -160,3 +160,167 @@ def test_policy_kernel_path_matches_plain_path(cuda):
     for g, w in zip(got, want):
         scale = max(1.0, w.abs().max().item())
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+# ------------------------------------------------- serving renderer kernels
+def _random_mlp_state(d_latent=64, d_hidden=512, n_blocks=5, combine=3, seed=0):
+    """A ResnetFC state_dict with every weight random (std fan_in^-1/2)."""
+    from real_robot_nerf_actor_tpu_torch.models import ResnetFC
+    net = ResnetFC(d_in=42, d_out=4 + 32, n_blocks=n_blocks, d_latent=d_latent,
+                   d_hidden=d_hidden, combine_layer=combine)
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in net.state_dict().items():
+        if v.dim() == 2:
+            fan_in = v.shape[0] if k == "lin_out_kernel" else v.shape[1]
+            sd[k] = torch.randn(v.shape, generator=g) * fan_in ** -0.5
+        else:
+            sd[k] = torch.randn(v.shape, generator=g) * 0.1
+    return sd
+
+
+def _serve_inputs(cuda, r=4096, k=16, dims=(100, 100, 100), d_latent=64, seed=0,
+                  grid_dtype=torch.bfloat16):
+    from real_robot_nerf_actor_tpu_torch.ops.grid_sample import expand_corners
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(BOUNDS[:3]), np.array(BOUNDS[3:])
+    o = rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo), (r, 3))
+    d = rng.standard_normal((r, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = np.concatenate([o, d, np.zeros((r, 2))], 1).astype(np.float32)
+    z = np.sort(rng.uniform(0.0, 0.6, (r, k)), axis=1).astype(np.float32)
+    grid = _randn((1,) + tuple(dims) + (d_latent,), seed + 1).to(cuda, grid_dtype)
+    return (torch.from_numpy(rays).to(cuda), torch.from_numpy(z).to(cuda),
+            expand_corners(grid))
+
+
+BOUNDS = (-0.1, -0.3, -0.2, 0.8, 0.7, 0.7)
+
+
+@pytest.mark.parametrize("r,k", [(4096, 16), (256, 3)])
+def test_ray_expand_equals_plain(cuda, r, k):
+    """Round-to-nearest products and quotients in the kernel: bit-equal to
+    the torch elementwise ops."""
+    from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import (
+        ray_expand, ray_expand_plain)
+    rays, z, _ = _serve_inputs(cuda, r, k, dims=(6, 7, 9))
+    launches = ray_expand.launches
+    got = ray_expand(rays, z, (6, 7, 9), BOUNDS)
+    torch.cuda.synchronize()
+    assert ray_expand.launches == launches + 1
+    want = ray_expand_plain(rays, z, (6, 7, 9), BOUNDS)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m", [65536, 1000])
+def test_corner_lerp(cuda, m):
+    """One bf16 ulp of each output, at most 2^-7 of it (the plain einsum sums
+    in another order, and the two fp32 sums can round to neighbouring bf16
+    values)."""
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
+    rows = _randn((m, 512), 0).to(cuda, torch.bfloat16)
+    w = torch.rand((8, m), generator=torch.Generator().manual_seed(1)).to(cuda)
+    launches = corner_lerp.launches
+    got = corner_lerp(rows, w)
+    torch.cuda.synchronize()
+    assert corner_lerp.launches == launches + 1
+    want = corner_lerp_plain(rows, w).float()
+    assert ((got.float() - want).abs() <= 2 ** -7 * want.abs() + 1e-6).all()
+
+
+def _mlp_case(cuda, quantized, n, d_latent=64, d_hidden=512):
+    from real_robot_nerf_actor_tpu_torch.ops import resnetfc_cuda as rf
+    sd = {k: v.to(cuda) for k, v in _random_mlp_state(d_latent, d_hidden).items()}
+    packed = rf.pack_resnetfc_params(sd, d_latent=d_latent, d_hidden=d_hidden,
+                                     quantize=quantized)
+    g = torch.Generator().manual_seed(2)
+    latent = torch.randn((n, d_latent), generator=g).to(cuda)
+    canon = torch.rand((n, 3), generator=g).to(cuda) * 1.2 - 0.1
+    dirs = torch.randn((n, 3), generator=g).to(cuda)
+    zi = rf.pack_mlp_input(latent, canon, dirs, 6, 1.5).contiguous()
+    return rf, packed, zi
+
+
+def _assert_mlp_close(got, want):
+    """Largest gap within 2^-4 of each output's largest |value|, and at most
+    1e-3 of the outputs more than one bf16 ulp (2^-8) of it apart: the
+    kernel's fp32 sums run in another order than the plain version's, which
+    can move a bf16 activation by one ulp, then an int8 code by one step,
+    and the step cascades through the blocks in a few rows (the plain
+    version moves by as much with its sums in float64; chip_smoke.py)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        scale = w.float().abs().max().item()
+        gap = (g.float() - w.float()).abs()
+        assert gap.max().item() <= 2 ** -4 * scale
+        assert (gap > 2 ** -8 * scale).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static", "bf16"])
+@pytest.mark.parametrize("n", [8192 + 37, 64])
+def test_fused_resnetfc_int8(cuda, mode, n):
+    quantized = mode != "bf16"
+    rf, packed, zi = _mlp_case(cuda, quantized, n)
+    scales = None
+    if mode == "static":
+        pb = rf.pack_resnetfc_params(
+            {k: v for k, v in _random_mlp_state().items()}, quantize=False)
+        amax = rf.capture_act_amax(zi.cpu(), pb)
+        scales = [float(a) * 1.05 / 127 + 1e-8 for a in amax]
+    launches = rf.fused_resnetfc_int8.launches
+    got = rf.fused_resnetfc_int8(zi, packed, quantized=quantized, act_scales=scales)
+    torch.cuda.synchronize()
+    assert rf.fused_resnetfc_int8.launches == launches + 1
+    want = rf.fused_resnetfc_int8_plain(zi, packed, quantized=quantized,
+                                        act_scales=scales)
+    _assert_mlp_close(got, want)
+    assert (got[0][:, 8:] == 0).all()
+    # a kernel that skips the latent injection of block 2 misses the tolerance
+    wrong = rf.fused_resnetfc_int8_plain(zi, packed, combine_layer=2,
+                                         quantized=quantized, act_scales=scales)
+    with pytest.raises(AssertionError):
+        _assert_mlp_close(wrong, want)
+
+
+@pytest.mark.parametrize("rows_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_gather_fused_equals_unfused_chain(cuda, mode, rows_dtype):
+    """fused_gather_resnetfc_int8 == ray_expand -> gather -> corner_lerp ->
+    fused_resnetfc_int8, bit for bit, at the render's coarse shape; both
+    close to the plain gather mirror. The grid rows come in bf16 (the
+    serving configs) and fp32 (a field with compute_dtype float32)."""
+    from real_robot_nerf_actor_tpu_torch.ops import resnetfc_cuda as rf
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
+    from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import ray_expand
+    rays, z, exp = _serve_inputs(cuda, grid_dtype=rows_dtype)
+    sd = {k: v.to(cuda) for k, v in _random_mlp_state().items()}
+    packed = rf.pack_resnetfc_params(sd)
+    aux, w8, flat = ray_expand(rays, z, (100, 100, 100), BOUNDS)
+    n = flat.numel()
+    aux, w8, flat = aux.reshape(-1, n), w8.reshape(8, n), flat.reshape(n)
+    rows_all = exp.reshape(-1, 512)
+    lat = corner_lerp(rows_all[flat.long()], w8).to(torch.bfloat16)
+    zi = torch.cat([lat, aux.T, torch.zeros((n, 128 - 88), dtype=torch.bfloat16,
+                                            device=cuda)], dim=-1)
+    scales = None
+    if mode == "static":     # calibrated on these rows, as the renderer does
+        amax = rf.capture_act_amax(zi, rf.pack_resnetfc_params(sd, quantize=False))
+        scales = [float(a) * 1.05 / 127 + 1e-8 for a in amax]
+    want = rf.fused_resnetfc_int8(zi, packed, act_scales=scales)
+    launches = rf.fused_gather_resnetfc_int8.launches
+    got = rf.fused_gather_resnetfc_int8(rows_all, flat, w8, aux, packed, act_scales=scales)
+    torch.cuda.synchronize()
+    assert rf.fused_gather_resnetfc_int8.launches == launches + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plain = rf.fused_gather_resnetfc_int8_plain(rows_all, flat, w8, aux, packed,
+                                                act_scales=scales)
+    _assert_mlp_close(got, plain)
+
+
+def test_fused_resnetfc_refuses_wrong_weights(cuda):
+    rf, packed, zi = _mlp_case(cuda, False, 64)
+    with pytest.raises(TypeError, match="quantize"):
+        rf.fused_resnetfc_int8(zi, packed, quantized=True)
