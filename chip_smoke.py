@@ -11,14 +11,21 @@ Phases, each reported on its own line:
      the plain version's, a PyTorch library call's where one computes the
      same function (timed here only, never called by the port), and the
      least time the card could take (bytes at 3.35 TB/s or flops at the
-     peak rate of their type, H100 SXM data sheet);
+     peak rate of their type, H100 SXM data sheet). The attention lines add
+     the key splits and blocks of each call and a planted fault (zero keys
+     let into the softmax, as TMA reads the keys past Nk) that must fail
+     their check; the conv line adds the brick and the bytes of x the
+     kernel loads over x's size. These two also report the device time of
+     the kernel and of the library call (torch.profiler), without the host's
+     launch time that bounds a single timed call of a few tens of us;
   3. act: PolicyServer with the configs/serve.yaml policy (UNet encoder,
      100^3 x 10 voxels, 220000 points, 2048 x 512 latents, depth 6, bf16,
      random weights from a seeded generator) and the three kernel knobs on,
      driven by run_deployment over a ReplayRobotIO of the synthetic scene
      (WARMUP untimed steps, then STEPS timed ones);
      launch counts per step must be flash_attention 8, conv3d_k3 1,
-     spatial_stats_3d 3. Then the same steps with the knobs off (the plain
+     spatial_stats_3d 3, and the attention and conv calls must all go
+     through the wgmma/TMA kernels (their own counters). Then the same steps with the knobs off (the plain
      versions), the decoded actions side by side and the largest logit gap,
      and one step of each path under torch.profiler (device time by
      kernel, device busy share).
@@ -120,6 +127,22 @@ def median_ms(torch, fn, reps):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def profiled_ms(torch, fn, reps):
+    """Device time of one call, from torch.profiler: the sum of the device
+    events of `reps` calls over `reps`. Unlike median_ms it leaves out the
+    time the host takes to launch, which bounds calls of a few tens of
+    microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0) / reps / 1e3
 
 
 def bound(flops, nbytes, dtype):
@@ -501,7 +524,7 @@ def main():
     from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import (
         flash_attention, flash_attention_plain)
     from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
-        conv3d_k3, conv3d_k3_plain)
+        BRICK, conv3d_k3, conv3d_k3_plain, halo_bytes)
     from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import (
         spatial_stats_3d, spatial_stats_3d_plain)
     from real_robot_nerf_actor_tpu_torch.train.serve import (
@@ -543,13 +566,44 @@ def main():
                                         (1, 8077, 2048, 1, torch.bfloat16),
                                         (1, 2048, 8077, 0, torch.float32)]:
         q, k, v = (randn(1, heads, n, 64, dtype=dtype) for n in (nq, nk, nk))
+        wgmma = flash_attention.wgmma_launches
         got = flash_attention(q, k, v)
         want = flash_attention_plain(q, k, v).float()
         torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        if flash_attention.wgmma_launches != wgmma + bf16:
+            fail(f"flash_attention {heads}x{nq}x{nk}: bf16 must reach the wgmma kernel, "
+                 "fp32 the SIMT one")
+        plan = flash_attention.last_plan if bf16 else {"splits": 1, "blocks": None}
         err = (got.float() - want).abs().max().item()
         tol = (2 ** -6 * want.abs().max().item() if dtype == torch.bfloat16
                else 1e-4)
         dname = str(dtype).split(".")[1]
+        # planted fault: the keys past Nk that TMA reads as zeros let into
+        # the softmax. On inputs whose real scores are all about -24 the
+        # plain version with those zero keys appended must fail the check,
+        # and the kernel must pass it.
+        pad_fault_err = pad_kernel_err = None
+        if bf16 and nk % 64:
+            u = torch.ones(64, device=dev)
+            qp = (u + 0.1 * torch.randn(1, heads, nq, 64, generator=gen, device=dev)).to(dtype)
+            kp = (-3.0 * (u + 0.1 * torch.randn(1, heads, nk, 64, generator=gen,
+                                                device=dev))).to(dtype)
+            vp = randn(1, heads, nk, 64, dtype=dtype)
+            want_p = flash_attention_plain(qp, kp, vp).float()
+            tol_p = 2 ** -6 * want_p.abs().max().item()
+            pad_kernel_err = (flash_attention(qp, kp, vp).float() - want_p).abs().max().item()
+            zeros = torch.zeros((1, heads, 64 - nk % 64, 64), device=dev, dtype=dtype)
+            pad_fault_err = (flash_attention_plain(qp, torch.cat([kp, zeros], 2),
+                                                   torch.cat([vp, zeros], 2)).float()
+                             - want_p).abs().max().item()
+            if not pad_kernel_err <= tol_p:
+                fail(f"flash_attention {heads}x{nq}x{nk}: padded-key inputs, error "
+                     f"{pad_kernel_err} > {tol_p}")
+            if not pad_fault_err > 2 * tol_p:
+                fail(f"flash_attention {heads}x{nq}x{nk}: the check does not see zero "
+                     f"keys let into the softmax ({pad_fault_err}, tolerance {tol_p})")
+            del qp, kp, vp
         # the tolerance must reject a kernel that skips the ragged last kv tile
         tail_err = None
         if nk % 64:
@@ -562,12 +616,17 @@ def main():
         ms = median_ms(torch, lambda: flash_attention(q, k, v), 20)
         plain_ms = median_ms(torch, lambda: flash_attention_plain(q, k, v), 5)
         lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        dev_ms = profiled_ms(torch, lambda: flash_attention(q, k, v), 20)
+        lib_dev_ms = profiled_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 20)
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         b_ms, b_by = bound(4.0 * heads * nq * nk * 64, nbytes, dname)
         emit("kernel", name="flash_attention", shape=[1, heads, nq, nk, 64],
-             dtype=dname, calls_per_step=calls, max_abs_err=err, tol=tol,
-             tail_dropped_err=tail_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-             bound_by=b_by, card=card)
+             dtype=dname, design="wgmma" if bf16 else "simt", splits=plan["splits"],
+             blocks=plan["blocks"], calls_per_step=calls, max_abs_err=err, tol=tol,
+             tail_dropped_err=tail_err, padded_keys_kernel_err=pad_kernel_err,
+             padded_keys_fault_err=pad_fault_err, ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+             bound_ms=b_ms, bound_by=b_by, card=card)
         if not err <= tol:
             fail(f"flash_attention {heads}x{nq}x{nk} {dname}: error {err} > {tol}")
         if calls:
@@ -577,9 +636,12 @@ def main():
     x = randn(1, 100, 100, 100, 128)
     w = randn(3, 3, 3, 128, 64, scale=0.03)     # cast once, as at load
     bias = randn(64, dtype=torch.float32, scale=0.1)
+    wgmma = conv3d_k3.wgmma_launches
     got = conv3d_k3(x, w, bias)
     want = conv3d_k3_plain(x, w, bias)
     torch.cuda.synchronize()
+    if conv3d_k3.wgmma_launches != wgmma + 1:
+        fail("conv3d_k3: the `final` conv did not reach the wgmma kernel")
     err = (got.float() - want.float()).abs().max().item()
     tol = 2 ** -7 * want.float().abs().max().item()
     ms = median_ms(torch, lambda: conv3d_k3(x, w, bias), 10)
@@ -588,11 +650,16 @@ def main():
     w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
     b_lib = bias.to(x.dtype)
     lib_ms = median_ms(torch, lambda: F.conv3d(x_ncdhw, w_oidhw, b_lib, padding=1), 10)
+    dev_ms = profiled_ms(torch, lambda: conv3d_k3(x, w, bias), 10)
+    lib_dev_ms = profiled_ms(torch, lambda: F.conv3d(x_ncdhw, w_oidhw, b_lib, padding=1), 10)
     nbytes = x.numel() * 2 + w.numel() * 2 + bias.numel() * 4 + got.numel() * 2
     b_ms, b_by = bound(2.0 * 100 ** 3 * 27 * 128 * 64, nbytes, "bfloat16")
     emit("kernel", name="conv3d_k3", shape=[1, 100, 100, 100, 128, 64],
-         dtype="bfloat16", calls_per_step=1, max_abs_err=err, tol=tol, ms=ms,
-         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+         dtype="bfloat16", design="wgmma", brick_xyz=list(BRICK),
+         input_bytes_factor=halo_bytes(tuple(x.shape), 64) / (x.numel() * 2),
+         calls_per_step=1, max_abs_err=err, tol=tol, ms=ms,
+         plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
+         library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
          card=card)
     if not err <= tol:
         fail(f"conv3d_k3: error {err} > {tol}")
@@ -684,8 +751,11 @@ def main():
             counters = (flash_attention, conv3d_k3, spatial_stats_3d)
             for c in counters:
                 c.launches = 0
+            flash_attention.wgmma_launches = conv3d_k3.wgmma_launches = 0
             trace = run_deployment(server, ReplayRobotIO(steps), num_steps=STEPS)
             launches = {c.__name__: c.launches for c in counters}
+            launches.update(flash_attention_wgmma=flash_attention.wgmma_launches,
+                            conv3d_k3_wgmma=conv3d_k3.wgmma_launches)
         finally:
             server.act = act
         return trace, times, launches
@@ -696,11 +766,15 @@ def main():
          step_ms=times_on, launches=launches, launches_per_step=per_step,
          setup_s=setup_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          card=card)
-    want_counts = {"flash_attention": 8, "conv3d_k3": 1, "spatial_stats_3d": 3}
+    want_counts = {"flash_attention": 8, "conv3d_k3": 1, "spatial_stats_3d": 3,
+                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1}
     if per_step != want_counts:
         fail(f"launches per act step {per_step}, want {want_counts}")
     for name in summary:
         summary[name]["launches"] = launches[name]
+    # the kernels line counts the launches of the wgmma/TMA designs
+    summary["flash_attention"]["launches"] = launches["flash_attention_wgmma"]
+    summary["conv3d_k3"]["launches"] = launches["conv3d_k3_wgmma"]
 
     trace_off, times_off, launches_off = drive(server_off)
     emit("act", path="plain", steps=STEPS, p50_ms=statistics.median(times_off),

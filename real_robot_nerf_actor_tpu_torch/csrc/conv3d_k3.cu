@@ -13,25 +13,50 @@
 // What bounds it on this card: the policy's `final` conv (100^3 voxels,
 // 128 -> 64 channels) is 2*27*128*64 = 442k flops per voxel against 256+128
 // bytes of input and output per voxel in bf16, over 1000 flops a byte: the
-// tensor cores, not memory, are the limit (989 TF/s bf16 on H100 SXM).
+// tensor cores, not memory, are the limit (989 TF/s bf16 on H100 SXM),
+// 0.447 ms for the call.
 //
-// Design: an implicit GEMM. M = output voxels, N = Cout, K = 27 taps x Cin.
-// Each block of 4 warps owns a 64-voxel x 64-channel output tile and walks
-// the 27 taps x 32-channel chunks of K. For each step it stages the 64
-// shifted input rows (zero where the tap falls outside the volume: padding
-// by bounds checks, no padded copy of the input) and the 32 x 64 weight
-// slice in shared memory. In bf16 each warp multiplies a 32 x 32 part with
-// WMMA 16x16x16 fragments that stay in registers for the whole K loop; in
-// fp32 each thread keeps a 4 x 8 tile of plain FMAs (the tensor cores would
-// round to TF32). The result goes through shared memory so that the bias
-// add and the store are coalesced. This first version has no cp.async
-// pipelining and no wgmma: loads and math do not overlap.
+// bf16 with Cin a multiple of 64 and Cout a multiple of 8 (the policy's
+// `final` conv): conv3d_k3_wgmma, an implicit GEMM with M = output voxels,
+// N = Cout in tiles of 64, K = 27 taps x Cin, on wgmma with fp32
+// accumulators in registers. Streaming the 27 shifted copies of the input
+// from L2 (27x the input's bytes) is what held the first version back, so
+// each block owns an output brick of x 16 x y 8 x z 2 = 256 voxels and loads
+// the brick plus its one-voxel halo (18 x 10 x 4 voxels x 64 channels, 92 KB)
+// once per 64-channel group with one 5-D TMA box, whose out-of-bounds zero
+// fill is the zero padding. Two halo buffers: the next group's (or brick's)
+// halo loads while the current one is multiplied. All 27 taps read the halo
+// from shared memory: a tap is a row offset, different for each output row,
+// so A goes to registers with ldmatrix (per-lane row addresses; the TMA's
+// 128-byte swizzle puts the 16-byte chunks of 8 consecutive rows in 8
+// different banks) and wgmma takes A from registers, loading the next tap's
+// fragments while the current tap's products run, and one tap's products
+// stay in flight while the next tap's are started. The weights, N contiguous
+// (MN-major B), stream as 64 x 64 slices per (tap, channel group) through a
+// 4-stage TMA ring. Two consumer warpgroups (128 rows each) and one producer
+// warp; persistent blocks, one per SM, walk the (brick, N-tile) items, so
+// one brick's epilogue overlaps the next one's loads. Outputs past the
+// volume's edge (bricks run past 100 in x and y) are not stored. Shared
+// memory: 2 x 92 KB of halo + 4 x 8 KB of weights.
+//
+// Every other call (fp32, or Cin not a multiple of 64: the card tests' Cin
+// 12 and 40) runs conv3d_k3_simt, the first version: a 64-voxel x 64-channel
+// tile per 4-warp block walking the 27 taps x 32-channel chunks of K, the
+// shifted rows and the weight slice staged in shared memory, WMMA in bf16
+// and plain FMAs in fp32 (the tensor cores would round to TF32).
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.996 ms
+// for the `final` conv (two CUDA events; 1.09 ms of device time under
+// torch.profiler) against 1.147 ms for torch's F.conv3d, 5.327 ms for the
+// first version and a bound of 0.447 ms; 3.28x the input's bytes loaded
+// (27x before). PERF.md, kernel table row 2.
 #include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -47,10 +72,9 @@ constexpr int LDC = BN + 4;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const float* __restrict__ bias, T* __restrict__ out, int nb,
-                 int D, int H, int W, int cin, int cout, bool vec_a,
-                 bool vec_b) {
+conv3d_k3_simt(const T* __restrict__ x, const T* __restrict__ w,
+               const float* __restrict__ bias, T* __restrict__ out, int nb,
+               int D, int H, int W, int cin, int cout, bool vec_a, bool vec_b) {
   __shared__ __align__(128) T As[BM * LDA];
   __shared__ __align__(128) T Bs[BK * LDB];
   __shared__ __align__(128) float Cs[BM * LDC];
@@ -216,34 +240,316 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const void* bias, void* out, int nb,
-           int d, int h, int wd, int cin, int cout, cudaStream_t stream) {
+int launch_simt(const void* x, const void* w, const void* bias, void* out, int nb,
+                int d, int h, int wd, int cin, int cout, cudaStream_t stream) {
   constexpr int VN = Vec<T>::n;
   const bool vec_a = cin % VN == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool vec_b = cout % VN == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const long long m = static_cast<long long>(nb) * d * h * wd;
   const dim3 grid(static_cast<unsigned>((m + BM - 1) / BM), (cout + BN - 1) / BN);
-  conv3d_k3_kernel<T><<<grid, THREADS, 0, stream>>>(
+  conv3d_k3_simt<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<T*>(out), nb, d, h, wd, cin,
       cout, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ============================================================ wgmma (bf16)
+namespace wg {
+
+constexpr int BX = 16, BY = 8, BZ = 2;                  // output brick
+constexpr int HX = BX + 2, HY = BY + 2, HZ = BZ + 2;    // with its halo
+constexpr int HALO_BYTES = HX * HY * HZ * 128;          // 64 bf16 a row: 92160
+constexpr int WSTAGES = 4;
+constexpr int W_BYTES = 64 * 64 * 2;                    // (64 ci) x (64 co)
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 32;
+constexpr int OFF_W = 2 * HALO_BYTES;
+constexpr int OFF_BAR = OFF_W + WSTAGES * W_BYTES;
+constexpr int SMEM_BYTES = OFF_BAR + (4 + 2 * WSTAGES) * 8 + 1024;
+
+struct Params {
+  __nv_bfloat16* out;
+  const float* bias;
+  int d, h, w, cin, cout;
+  int nbx, nby, nbz, ntiles;
+  long long items;
+};
+
+struct Item {
+  int nt, bx, by, bz, b;
+};
+
+__device__ __forceinline__ Item decode(long long it, const Params& p) {
+  Item r;
+  r.nt = static_cast<int>(it % p.ntiles);
+  it /= p.ntiles;
+  r.bx = static_cast<int>(it % p.nbx);
+  it /= p.nbx;
+  r.by = static_cast<int>(it % p.nby);
+  it /= p.nby;
+  r.bz = static_cast<int>(it % p.nbz);
+  r.b = static_cast<int>(it / p.nbz);
+  return r;
+}
+
+using Frag = uint32_t[2][4][4];  // [m-tile][k16 slice][register]
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv3d_k3_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                const __grid_constant__ CUtensorMap tm_w, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* wring = smem + OFF_W;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* halo_full = bars;
+  uint64_t* halo_empty = bars + 2;
+  uint64_t* w_full = bars + 4;
+  uint64_t* w_empty = w_full + WSTAGES;
+
+  const int tid = threadIdx.x;
+  const int groups = p.cin / 64;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&halo_full[i], 1);
+      hopper::mbar_init(&halo_empty[i], CONSUMERS);
+    }
+    for (int i = 0; i < WSTAGES; ++i) {
+      hopper::mbar_init(&w_full[i], 1);
+      hopper::mbar_init(&w_empty[i], CONSUMERS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---------------- producer: one thread starts every TMA load
+    if (tid != CONSUMERS) return;
+    int hl = 0, wl = 0;
+    auto load_halo = [&](long long it, int g) {
+      const Item t = decode(it, p);
+      const int buf = hl & 1;
+      if (hl >= 2) hopper::mbar_wait(&halo_empty[buf], ((hl >> 1) - 1) & 1);
+      hopper::mbar_expect_tx(&halo_full[buf], HALO_BYTES);
+      hopper::tma_load_5d(smem + buf * HALO_BYTES, &tm_x, &halo_full[buf], g * 64,
+                          t.bx * BX - 1, t.by * BY - 1, t.bz * BZ - 1, t.b);
+      ++hl;
+    };
+    if (blockIdx.x < p.items) load_halo(blockIdx.x, 0);
+    for (long long it = blockIdx.x; it < p.items; it += gridDim.x) {
+      const int nt = static_cast<int>(it % p.ntiles);
+      for (int g = 0; g < groups; ++g) {
+        const bool last = g + 1 == groups;
+        const long long next_it = last ? it + gridDim.x : it;
+        for (int tap = 0; tap < 27; ++tap) {
+          const int st = wl % WSTAGES;
+          if (wl >= WSTAGES) hopper::mbar_wait(&w_empty[st], ((wl / WSTAGES) - 1) & 1);
+          // the consumers have released this group's first weight slice, so
+          // they are done with the previous group's halo buffer: refill it
+          if (tap == WSTAGES && next_it < p.items) load_halo(next_it, last ? 0 : g + 1);
+          hopper::mbar_expect_tx(&w_full[st], W_BYTES);
+          hopper::tma_load_2d(wring + st * W_BYTES, &tm_w, &w_full[st], nt * 64,
+                              tap * p.cin + g * 64);
+          ++wl;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers: warpgroup cw owns brick rows [128 cw, 128 cw + 128)
+  const int cw = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2, qd = lane & 3;
+  // ldmatrix: lane gives row (lane & 7) + 8 * ((lane >> 3) & 1) of the warp's
+  // 16 rows (x), 16-byte chunk (lane >> 4) of each k16 slice. The warp's rows
+  // of m-tile mt are one x line of the brick: z = line / 8, y = line % 8.
+  const int lx = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int lk = lane >> 4;
+  int row0[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int line = cw * 8 + mt * 4 + warp;
+    row0[mt] = ((line >> 3) * HY + (line & 7)) * HX + lx;
+  }
+
+  int hl = 0, wl = 0;
+  float acc[2][32];
+  Frag fa, fb;
+
+  for (long long it = blockIdx.x; it < p.items; it += gridDim.x) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+
+    for (int g = 0; g < groups; ++g) {
+      const int buf = hl & 1;
+      hopper::mbar_wait(&halo_full[buf], (hl >> 1) & 1);
+      const uint32_t halo = hopper::smem_u32(smem + buf * HALO_BYTES);
+
+      auto load_a = [&](Frag& a, int tap) {
+        const int off = ((tap / 9) * HY + (tap / 3) % 3) * HX + tap % 3;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r = row0[mt] + off;
+          const uint32_t ra = halo + r * 128;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::ldmatrix_x4(a[mt][kk], ra + (((2 * kk + lk) ^ (r & 7)) << 4));
+        }
+      };
+      auto keep = [&](Frag& a) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(a[mt][kk]);
+      };
+      // start one tap's products from `cur`; then wait for the previous
+      // tap's (one group stays in flight, so the tensor cores never drain
+      // between taps), release its weight slice and load the next tap's A
+      // into `nxt`, the registers that tap read
+      auto step = [&](Frag& cur, Frag& nxt, int tap) {
+        const int st = wl % WSTAGES;
+        hopper::mbar_wait(&w_full[st], (wl / WSTAGES) & 1);
+        const uint64_t db = hopper::desc_sw128(wring + st * W_BYTES);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::wgmma_rs_64x64x16_tb(acc[mt], cur[mt][kk], db + kk * (16 * 128 >> 4));
+        hopper::wgmma_commit();
+        if (tap > 0) {
+          hopper::wgmma_wait<1>();
+          keep(nxt);
+          hopper::mbar_arrive(&w_empty[(wl - 1) % WSTAGES]);
+        }
+        if (tap + 1 < 27) load_a(nxt, tap + 1);
+        ++wl;
+      };
+
+      hopper::fence_regs(acc[0]);
+      hopper::fence_regs(acc[1]);
+      load_a(fa, 0);
+      for (int tap = 0; tap < 26; tap += 2) {
+        step(fa, fb, tap);
+        step(fb, fa, tap + 1);
+      }
+      step(fa, fb, 26);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc[0]);
+      hopper::fence_regs(acc[1]);
+      keep(fa);
+      hopper::mbar_arrive(&w_empty[(wl - 1) % WSTAGES]);
+      hopper::mbar_arrive(&halo_empty[buf]);
+      ++hl;
+    }
+
+    // epilogue: + bias (fp32), one rounding to bf16, stores inside the volume
+    const Item t = decode(it, p);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int line = cw * 8 + mt * 4 + warp;
+      const int z = t.bz * BZ + (line >> 3);
+      const int y = t.by * BY + (line & 7);
+      if (z >= p.d || y >= p.h) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int x = t.bx * BX + g8 + 8 * hf;
+        if (x >= p.w) continue;
+        __nv_bfloat16* orow =
+            p.out + (((static_cast<long long>(t.b) * p.d + z) * p.h + y) * p.w + x) *
+                        p.cout;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int co = t.nt * 64 + 8 * j + 2 * qd;
+          if (co >= p.cout) continue;
+          const float b0 = p.bias != nullptr ? p.bias[co] : 0.f;
+          const float b1 = p.bias != nullptr ? p.bias[co + 1] : 0.f;
+          *reinterpret_cast<uint32_t*>(orow + co) = hopper::pack_bf16(
+              acc[mt][4 * j + 2 * hf] + b0, acc[mt][4 * j + 2 * hf + 1] + b1);
+        }
+      }
+    }
+  }
+}
+
+int launch(const void* x, const void* w, const void* bias, void* out, int nb, int d,
+           int h, int wd, int cin, int cout, cudaStream_t stream) {
+  static bool attr_set = false;  // once per kernel, not per launch
+  static int sms = 0;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3d_k3_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0;
+    cudaGetDevice(&dev);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  CUtensorMap tm_x, tm_w;
+  const uint64_t c2 = static_cast<uint64_t>(cin) * 2;
+  const uint64_t xdims[5] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(wd),
+                             static_cast<uint64_t>(h), static_cast<uint64_t>(d),
+                             static_cast<uint64_t>(nb)};
+  const uint64_t xstrides[4] = {c2, c2 * wd, c2 * wd * h, c2 * wd * h * d};
+  const uint32_t xbox[5] = {64, HX, HY, HZ, 1};
+  int r = encode_bf16_sw128(&tm_x, const_cast<void*>(x), 5, xdims, xstrides, xbox);
+  if (r != 0) return r;
+  const uint64_t wdims[2] = {static_cast<uint64_t>(cout), 27ull * cin};
+  const uint64_t wstrides[1] = {static_cast<uint64_t>(cout) * 2};
+  const uint32_t wbox[2] = {64, 64};
+  r = encode_bf16_sw128(&tm_w, const_cast<void*>(w), 2, wdims, wstrides, wbox);
+  if (r != 0) return r;
+  Params p;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.bias = static_cast<const float*>(bias);
+  p.d = d;
+  p.h = h;
+  p.w = wd;
+  p.cin = cin;
+  p.cout = cout;
+  p.nbx = (wd + BX - 1) / BX;
+  p.nby = (h + BY - 1) / BY;
+  p.nbz = (d + BZ - 1) / BZ;
+  p.ntiles = (cout + 63) / 64;
+  p.items = static_cast<long long>(p.ntiles) * p.nbx * p.nby * p.nbz * nb;
+  const unsigned grid = static_cast<unsigned>(p.items < sms ? p.items : sms);
+  conv3d_k3_wgmma<<<grid, THREADS, SMEM_BYTES, stream>>>(tm_x, tm_w, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // x (nb, d, h, w, cin), w (3, 3, 3, cin, cout) of one dtype, bias fp32 (cout)
-// or null, out (nb, d, h, w, cout) in x's dtype; contiguous.
-// Returns the launch's cudaError_t.
+// or null, out (nb, d, h, w, cout) in x's dtype; contiguous. The first
+// version, any cin and cout. Returns the launch's cudaError_t.
 extern "C" int conv3d_k3_fwd(const void* x, const void* w, const void* bias,
                              void* out, int nb, int d, int h, int wd, int cin,
                              int cout, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(x, w, bias, out, nb, d, h, wd, cin, cout, s);
+    return launch_simt<__nv_bfloat16>(x, w, bias, out, nb, d, h, wd, cin, cout, s);
   if (dtype == kFloat32)
-    return launch<float>(x, w, bias, out, nb, d, h, wd, cin, cout, s);
+    return launch_simt<float>(x, w, bias, out, nb, d, h, wd, cin, cout, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same call in bf16 on conv3d_k3_wgmma: cin a multiple of 64, cout a
+// multiple of 8, x and w 16-byte aligned. Returns the launch's cudaError_t.
+extern "C" int conv3d_k3_wgmma_fwd(const void* x, const void* w, const void* bias,
+                                   void* out, int nb, int d, int h, int wd, int cin,
+                                   int cout, void* stream) {
+  if (cin % 64 != 0 || cout % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return wg::launch(x, w, bias, out, nb, d, h, wd, cin, cout,
+                    static_cast<cudaStream_t>(stream));
 }
 
 EXPORT_ERROR_STRING

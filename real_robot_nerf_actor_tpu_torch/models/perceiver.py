@@ -118,10 +118,13 @@ class MHAttention(nn.Module):
 
         q, k, v = map(split_heads, (q, k, v))
         if self.use_flash:
-            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+            # the kernel reads the strided head views and writes (B, N, H*D)
+            # through a view of the same layout: no copy either way
+            out = q.new_empty((x.shape[0], x.shape[1], self.heads * self.dim_head))
+            flash_attention(q, k, v, out=split_heads(out))
         else:
             out = reference_attention(q, k, v)
-        out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
+            out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
         return self.to_out(out).float()
 
 

@@ -29,12 +29,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # ctypes signatures of the C entry points, by source name
 _SIGNATURES = {
     "flash_attention": {
-        "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        # q, k, v, o, part_o, part_ml; nb, heads, nq, nk, splits,
+        # tiles_per_split; 12 element strides; scale, dtype, stream
+        "flash_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p],
     },
     "conv3d_k3": {
         "conv3d_k3_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_int, ctypes.c_void_p],
+        # x, w, bias, out; nb, d, h, w, cin, cout; stream (bf16 only)
+        "conv3d_k3_wgmma_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p],
     },
     "resnetfc_int8": {
         # zi, 10 weight/scale pointers, out, hidden; n, d_latent, n_aux,

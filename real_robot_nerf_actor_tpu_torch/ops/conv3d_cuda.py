@@ -1,9 +1,12 @@
 """3-D convolution, kernel 3, stride 1, zero padding, NDHWC (forward).
 
 Counterpart of the JAX package's `ops/conv3d_pallas.py`. On a CUDA tensor
-`conv3d_k3` launches the hand-written Hopper kernel of `csrc/conv3d_k3.cu`;
-on a CPU tensor it runs `conv3d_k3_plain`, 27 shifted tap matmuls with the
-kernel's arithmetic. A CUDA call the kernel cannot take raises.
+`conv3d_k3` launches a hand-written Hopper kernel of `csrc/conv3d_k3.cu`:
+bf16 with Cin a multiple of 64 and Cout a multiple of 8 (the policy's
+`final` conv, 128 -> 64) goes to the wgmma/TMA implicit GEMM over haloed
+bricks (`takes_wgmma`); every other shape and fp32 to the first, SIMT/WMMA
+kernel. On a CPU tensor it runs `conv3d_k3_plain`, 27 shifted tap matmuls
+with the kernel's arithmetic. A CUDA call neither kernel takes raises.
 
 The weight keeps the flax layout (3, 3, 3, Cin, Cout). The plain version
 casts it to the input's dtype as the TPU path does
@@ -21,6 +24,17 @@ import torch.nn.functional as F
 from real_robot_nerf_actor_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BRICK = (16, 8, 2)   # output voxels (x, y, z) of one item of the wgmma kernel
+
+
+def halo_bytes(shape, cout: int) -> int:
+    """Bytes of x that the wgmma kernel loads for x of `shape` (B, D, H, W,
+    Cin): one box of the brick plus its one-voxel halo, 64 channels deep,
+    per brick, 64-channel group and 64-wide tile of Cout."""
+    b, d, h, w, cin = shape
+    bx, by, bz = BRICK
+    bricks = b * -(-d // bz) * -(-h // by) * -(-w // bx)
+    return bricks * (cin // 64) * -(-cout // 64) * (bx + 2) * (by + 2) * (bz + 2) * 128
 
 
 def conv3d_k3_plain(x: torch.Tensor, kernel: torch.Tensor,
@@ -62,6 +76,15 @@ def _check(x, kernel, bias):
         raise ValueError("conv3d_k3: x, kernel and bias must be contiguous")
 
 
+def takes_wgmma(x: torch.Tensor, kernel: torch.Tensor) -> bool:
+    """Whether a (checked) CUDA call runs on the wgmma kernel: bf16, Cin a
+    multiple of 64 (whole 128-byte halo rows), Cout a multiple of 8 (16-byte
+    weight rows for TMA), 16-byte aligned x and weight."""
+    cin, cout = kernel.shape[3], kernel.shape[4]
+    return (x.dtype == torch.bfloat16 and cin % 64 == 0 and cout % 8 == 0
+            and x.data_ptr() % 16 == 0 and kernel.data_ptr() % 16 == 0)
+
+
 def conv3d_k3(x: torch.Tensor, kernel: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B, D, H, W, Cin), kernel (3, 3, 3, Cin, Cout) in x's dtype, bias
@@ -73,14 +96,21 @@ def conv3d_k3(x: torch.Tensor, kernel: torch.Tensor,
     cout = kernel.shape[-1]
     lib = _build.load("conv3d_k3")
     out = torch.empty((b, d, h, w, cout), dtype=x.dtype, device=x.device)
+    wgmma = takes_wgmma(x, kernel)
+    ptrs = (x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.conv3d_k3_fwd(
-            x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), b, d, h, w, cin, cout, _DTYPES[x.dtype], stream)
+        if wgmma:
+            code = lib.conv3d_k3_wgmma_fwd(*ptrs, b, d, h, w, cin, cout, stream)
+        else:
+            code = lib.conv3d_k3_fwd(*ptrs, b, d, h, w, cin, cout, _DTYPES[x.dtype],
+                                     stream)
     _build.check(lib, code, "conv3d_k3")
     conv3d_k3.launches += 1
+    conv3d_k3.wgmma_launches += wgmma
     return out
 
 
-conv3d_k3.launches = 0
+conv3d_k3.launches = 0         # calls that launched a kernel (either design)
+conv3d_k3.wgmma_launches = 0   # of those, calls of the wgmma/TMA kernel

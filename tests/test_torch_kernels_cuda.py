@@ -23,8 +23,9 @@ import pytest
 import torch
 
 from real_robot_nerf_actor_tpu_torch.models import PerceiverConfig, PerceiverIO
+from real_robot_nerf_actor_tpu_torch.ops import attention_cuda
 from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, flash_attention_split_plain, plan_splits)
 from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
     conv3d_k3, conv3d_k3_plain)
 from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import (
@@ -51,16 +52,86 @@ def _randn(shape, seed, scale=1.0):
 @pytest.mark.parametrize("heads,nq,nk", [(1, 2048, 8077), (8, 2048, 2048),
                                          (1, 8077, 2048), (2, 77, 125)])
 def test_flash_attention(cuda, dtype, heads, nq, nk):
+    """bf16 reaches the wgmma kernel (split by plan_splits: 8, 1, 2 and 1
+    here), fp32 the SIMT kernel; both against the plain version."""
     q, k, v = (_randn((1, heads, n, 64), s).to(cuda, dtype)
                for s, n in ((0, nq), (1, nk), (2, nk)))
-    launches = flash_attention.launches
+    launches, wgmma = flash_attention.launches, flash_attention.wgmma_launches
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert flash_attention.launches == launches + 1
+    assert flash_attention.wgmma_launches == wgmma + (dtype == torch.bfloat16)
+    if dtype == torch.bfloat16:
+        assert flash_attention.last_plan["splits"] == plan_splits(heads, nq, nk)
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v).float()
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * want.abs().max().item()
     torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("heads,nq,nk,splits", [(1, 2048, 8077, 1), (1, 2048, 8077, 3),
+                                                (1, 2048, 8077, 16), (2, 77, 125, 2),
+                                                (1, 8077, 2048, 5), (8, 2048, 2048, 2)])
+def test_flash_attention_split_kv(cuda, monkeypatch, heads, nq, nk, splits):
+    """Forced split counts (the planner patched), ragged last chunks
+    included: each chunk's (m, l, acc) in scratch and the combine kernel,
+    against the plain version and the plain split algebra."""
+    monkeypatch.setattr(attention_cuda, "plan_splits", lambda *a: splits)
+    q, k, v = (_randn((1, heads, n, 64), s).to(cuda, torch.bfloat16)
+               for s, n in ((3, nq), (4, nk), (5, nk)))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.last_plan["splits"] == min(splits, -(-nk // 64))
+    want = flash_attention_plain(q, k, v).float()
+    tol = 2 ** -6 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    split = flash_attention_split_plain(q, k, v, splits).float()
+    torch.testing.assert_close(got.float(), split, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,nq,nk", [(1, 2048, 8077), (8, 2048, 2048), (2, 77, 125)])
+def test_flash_attention_strided_views(cuda, dtype, heads, nq, nk):
+    """MHAttention's layout: q, k, v as split-heads views of (B, N, H*64)
+    projections (k and v two halves of one), the output written through a
+    view of a (B, Nq, H*64) tensor."""
+    inner = heads * 64
+    qp = _randn((2, nq, inner), 6).to(cuda, dtype)
+    kv = _randn((2, nk, 2 * inner), 7).to(cuda, dtype)
+    split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, 64).transpose(1, 2)  # noqa: E731
+    q, k, v = split(qp), split(kv[..., :inner]), split(kv[..., inner:])
+    out = torch.full((2, nq, inner), float("nan"), device=cuda, dtype=dtype)
+    got = flash_attention(q, k, v, out=split(out))
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    want = flash_attention_plain(q, k, v).float()
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * want.abs().max().item()
+    torch.testing.assert_close(split(out).float(), want, rtol=0, atol=tol)
+
+
+def test_flash_attention_masks_padded_keys(cuda, monkeypatch):
+    """Every real score is about -24 (k = -3 (u + noise) against q near u),
+    so the 51 keys that TMA reads as zeros past Nk = 8077 would score 0 and
+    swamp them. The kernel masks them: it passes where the plain version
+    with those zero keys appended fails by far."""
+    rng = np.random.default_rng(7)
+    u = np.ones(64, np.float32)
+    q = u + 0.1 * rng.standard_normal((1, 1, 2048, 64)).astype(np.float32)
+    k = -3.0 * (u + 0.1 * rng.standard_normal((1, 1, 8077, 64)).astype(np.float32))
+    v = rng.standard_normal((1, 1, 8077, 64)).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (q, k, v))
+    assert ((q.float() @ k.float().transpose(-1, -2)) * 0.125).max().item() <= -20
+    want = flash_attention_plain(q, k, v).float()
+    tol = 2 ** -6 * want.abs().max().item()
+    got = flash_attention(q, k, v).float()            # 8 splits
+    monkeypatch.setattr(attention_cuda, "plan_splits", lambda *a: 1)
+    got_one = flash_attention(q, k, v).float()        # one pass
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    torch.testing.assert_close(got_one, want, rtol=0, atol=tol)
+    pad = torch.zeros((1, 1, 51, 64), device=cuda, dtype=torch.bfloat16)
+    faulty = flash_attention_plain(q, torch.cat([k, pad], 2), torch.cat([v, pad], 2))
+    assert (faulty.float() - want).abs().max().item() > 10 * tol
 
 
 def test_flash_attention_refuses_other_head_dims(cuda):
@@ -72,15 +143,23 @@ def test_flash_attention_refuses_other_head_dims(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cin,cout", [((2, 7, 11, 6), 12, 10),
                                             ((1, 13, 11, 9), 40, 24),
-                                            ((1, 100, 100, 100), 128, 64)])
+                                            ((1, 100, 100, 100), 128, 64),
+                                            ((1, 13, 11, 9), 64, 24),
+                                            ((2, 7, 11, 6), 128, 200),
+                                            ((1, 5, 9, 17), 192, 8)])
 def test_conv3d_k3(cuda, dtype, shape, cin, cout):
+    """bf16 with Cin % 64 == 0 and Cout % 8 == 0 reaches the wgmma kernel
+    (bricks of 16 x 8 x 2 voxels, none of these volumes a multiple of it in
+    every axis); the rest the first kernel."""
     x = _randn(shape + (cin,), 0).to(cuda, dtype)
     w = _randn((3, 3, 3, cin, cout), 1, 0.05).to(cuda, dtype)
     b = _randn((cout,), 2).to(cuda)
-    launches = conv3d_k3.launches
+    launches, wgmma = conv3d_k3.launches, conv3d_k3.wgmma_launches
     got = conv3d_k3(x, w, b)
     torch.cuda.synchronize()
     assert conv3d_k3.launches == launches + 1
+    routed = dtype == torch.bfloat16 and cin % 64 == 0 and cout % 8 == 0
+    assert conv3d_k3.wgmma_launches == wgmma + routed
     want = conv3d_k3_plain(x, w, b).float()
     scale = want.abs().max().item()
     tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2 ** -7 * scale
@@ -101,6 +180,18 @@ def test_spatial_stats_3d(cuda, shape, dtype):
     # error relative to each channel's denominator, which bounds the
     # numerators (|lin| <= 1)
     assert ((got - want).abs() / want[..., :1]).max().item() <= 1e-5
+
+
+def test_conv3d_k3_wgmma_without_bias(cuda):
+    x = _randn((1, 9, 8, 16, 64), 3).to(cuda, torch.bfloat16)
+    w = _randn((3, 3, 3, 64, 64), 4, 0.05).to(cuda, torch.bfloat16)
+    wgmma = conv3d_k3.wgmma_launches
+    got = conv3d_k3(x, w)
+    torch.cuda.synchronize()
+    assert conv3d_k3.wgmma_launches == wgmma + 1
+    want = conv3d_k3_plain(x, w).float()
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=2 ** -7 * want.abs().max().item())
 
 
 def test_conv3d_k3_refuses_a_weight_in_another_dtype(cuda):
