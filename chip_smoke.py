@@ -38,10 +38,13 @@ Phases, each reported on its own line:
      calibrate_int8_act, plan_rays), then its four kernels against their
      plain versions on the frame's first tile (ray_expand, corner_lerp,
      fused_resnetfc_int8 and fused_gather_resnetfc_int8 under static and
-     dynamic scales), then FRAME_WARMUP untimed and FRAMES timed frames with
-     gather_fused_mlp false (serve.yaml as written) and true: p50 per frame,
-     delivered and computed rays/s, active share, peak memory, launches per
-     frame (2 per tile for each kernel of the path). The frames of the two
+     dynamic scales). The MLP kernels run their wgmma design, which must
+     equal the first (mma.sync) design bit for bit; that design is timed
+     beside it (prev_ms). Then FRAME_WARMUP untimed and FRAMES timed frames
+     with gather_fused_mlp false (serve.yaml as written) and true: p50 per
+     frame, delivered and computed rays/s, active share, peak memory,
+     launches per frame (2 per tile for each kernel of the path, and every
+     MLP launch on the wgmma design). The frames of the two
      settings must be equal, and the kernel frame must stay within RGB_TOL
      (largest gap) and PSNR_MIN of the plain field's (mlp_backend "xla")
      frame. Three planted glue faults (the fine pass dropped, the field's
@@ -231,8 +234,9 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
                  "fine": sample_importance_z(z_coarse, w_coarse, cfg.n_fine, generator=g)}
     packed = r._packed
     kp = packed["kernel"]
-    wbytes = sum(v.numel() * v.element_size() for v in kp.values()
-                 if isinstance(v, torch.Tensor))
+    # the weights once: the wgmma kernel reads wq_ring in wq's place
+    wbytes = sum(v.numel() * v.element_size() for k, v in kp.items()
+                 if isinstance(v, torch.Tensor) and k != "wq_ring")
     f = SERVE_FIELD
     dims = tuple(d0.shape[1:4])
     nb, cl = f["n_blocks"], f["combine_layer"]
@@ -285,14 +289,25 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
         record("corner_lerp", n_tiles, err, ms, plain_ms, b_ms, b_by, lib_ms)
 
         zi = r._assemble_zi_int8(exp, tile_rays, z)[0]
-        # the fused MLP kernels, static (the main path) and dynamic scales
+        # the fused MLP kernels, static (the main path) and dynamic scales;
+        # the wgmma design against the plain version and against the first
+        # design (bit for bit), with the weight bytes each call reads from
+        # L2 (all block matrices once per 64-row tile)
         t_ops = n * (int8_ops / PEAK_FLOPS["int8"] + bf16_ops / PEAK_FLOPS["bfloat16"])
+        l2_bytes = -(-n // 64) * kp["wq"].numel()
         for mode, sc in (("static", static_t), ("dynamic", None)):
             calls = n_tiles if mode == "static" else 0
             gkw = dict(d_latent=f["d_latent"], n_blocks=nb, combine_layer=cl, act_scales=sc)
+            wgmma = rf.fused_resnetfc_int8.wgmma_launches
             got = rf.fused_resnetfc_int8(zi, packed, nb, cl, act_scales=sc)
+            if rf.fused_resnetfc_int8.wgmma_launches != wgmma + 1:
+                fail(f"fused_resnetfc_int8 {pass_} {mode}: did not reach the wgmma design")
+            prev = rf.fused_resnetfc_int8(zi, packed, nb, cl, act_scales=sc, design="mma_sync")
             want = rf.fused_resnetfc_int8_plain(zi, packed, nb, cl, act_scales=sc)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, prev)):
+                fail(f"fused_resnetfc_int8 {pass_} {mode}: the wgmma design differs from "
+                     "the mma.sync design")
             err, tol, over = mlp_err(got, want)
             wrong = rf.fused_resnetfc_int8_plain(zi, packed, nb, cl - 1, act_scales=sc)
             wrong_err, _, wrong_over = mlp_err(wrong, want)
@@ -308,12 +323,16 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
                 fail(f"fused_resnetfc_int8 {pass_} {mode}: the tolerance does not see "
                      f"the block-2 injection dropped ({wrong_err})")
             ms = median_ms(torch, lambda: rf.fused_resnetfc_int8(zi, packed, nb, cl, act_scales=sc), 10)
+            prev_ms = median_ms(torch, lambda: rf.fused_resnetfc_int8(
+                zi, packed, nb, cl, act_scales=sc, design="mma_sync"), 10)
             plain_ms = median_ms(torch, lambda: rf.fused_resnetfc_int8_plain(
                 zi, packed, nb, cl, act_scales=sc), 3)
             nbytes = zi.numel() * 2 + wbytes + n * (128 + f["d_hidden"]) * 2
             b_ms = max(t_ops, nbytes / PEAK_BYTES_PER_S) * 1e3
             b_by = "operations" if t_ops > nbytes / PEAK_BYTES_PER_S else "bytes"
             emit("kernel", name="fused_resnetfc_int8", shape=[n, 128], scales=mode,
+                 design="wgmma", equals_prev=True, prev_ms=prev_ms,
+                 l2_weight_bytes=l2_bytes,
                  calls_per_frame=calls, max_abs_err=err, tol=tol, share_over_ulp=over,
                  share_tol=MLP_SHARE, plain_reorder_err=reorder_err,
                  plain_reorder_share_over_ulp=reorder_over, injection_dropped_err=wrong_err,
@@ -323,19 +342,30 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
                 record("fused_resnetfc_int8", calls, err, ms, plain_ms, b_ms, b_by, None)
 
             unfused = got
+            wgmma = rf.fused_gather_resnetfc_int8.wgmma_launches
             got = rf.fused_gather_resnetfc_int8(rows_all, flat, w8, aux, packed, **gkw)
+            if rf.fused_gather_resnetfc_int8.wgmma_launches != wgmma + 1:
+                fail(f"fused_gather_resnetfc_int8 {pass_} {mode}: did not reach the wgmma "
+                     "design")
+            prev = rf.fused_gather_resnetfc_int8(rows_all, flat, w8, aux, packed,
+                                                 design="mma_sync", **gkw)
             want = rf.fused_gather_resnetfc_int8_plain(rows_all, flat, w8, aux, packed,
                                                        **gkw)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, unfused)):
                 fail(f"fused_gather_resnetfc_int8 {pass_} {mode}: differs from "
                      "ray_expand -> corner_lerp -> fused_resnetfc_int8")
+            if not all(torch.equal(a, b) for a, b in zip(got, prev)):
+                fail(f"fused_gather_resnetfc_int8 {pass_} {mode}: the wgmma design differs "
+                     "from the mma.sync design")
             err, tol, over = mlp_err(got, want)
             if not (err <= tol and over <= MLP_SHARE):
                 fail(f"fused_gather_resnetfc_int8 {pass_} {mode}: error {err} (tolerance "
                      f"{tol}), {over} of the outputs over one ulp")
             ms = median_ms(torch, lambda: rf.fused_gather_resnetfc_int8(
                 rows_all, flat, w8, aux, packed, **gkw), 10)
+            prev_ms = median_ms(torch, lambda: rf.fused_gather_resnetfc_int8(
+                rows_all, flat, w8, aux, packed, design="mma_sync", **gkw), 10)
             plain_ms = median_ms(torch, lambda: rf.fused_gather_resnetfc_int8_plain(
                 rows_all, flat, w8, aux, packed, **gkw), 3)
             nbytes = n * (rows_all.shape[1] * 2 + 4 + 8 * 4 + aux.shape[0] * 2) + wbytes \
@@ -343,7 +373,8 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             b_ms = max(t_ops, nbytes / PEAK_BYTES_PER_S) * 1e3
             b_by = "operations" if t_ops > nbytes / PEAK_BYTES_PER_S else "bytes"
             emit("kernel", name="fused_gather_resnetfc_int8", shape=[n, rows_all.shape[1]],
-                 scales=mode,
+                 scales=mode, design="wgmma", equals_prev=True, prev_ms=prev_ms,
+                 l2_weight_bytes=l2_bytes,
                  calls_per_frame=calls, max_abs_err=err, tol=tol, share_over_ulp=over,
                  share_tol=MLP_SHARE, equals_unfused=True,
                  ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -351,11 +382,11 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             if calls:
                 record("fused_gather_resnetfc_int8", calls, err, ms, plain_ms, b_ms, b_by,
                        None)
-    del exp, rows_all, rows, zi
+    del exp, rows_all, rows, zi, prev
 
     # ---- frames: serve.yaml as written, then gather_fused_mlp = true
-    counters = (ray_expand, corner_lerp, rf.fused_resnetfc_int8,
-                rf.fused_gather_resnetfc_int8)
+    mlp_counters = (rf.fused_resnetfc_int8, rf.fused_gather_resnetfc_int8)
+    counters = (ray_expand, corner_lerp) + mlp_counters
 
     def frames(rend, seed):
         """FRAME_WARMUP untimed, FRAMES timed frames; the last frame's output,
@@ -366,6 +397,8 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
+        for c in mlp_counters:
+            c.wgmma_launches = 0
         times = []
         for i in range(FRAMES):
             t = time.perf_counter()
@@ -374,6 +407,7 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         launches = {c.__name__: c.launches for c in counters}
+        launches.update({f"{c.__name__}_wgmma": c.wgmma_launches for c in mlp_counters})
         return out, times, launches, torch.cuda.max_memory_allocated() / 2 ** 30
 
     r_gf = make(gather_fused_mlp=True)
@@ -393,12 +427,15 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
              computed_rays_per_s=plan.n_active / p50 * 1e3,
              active_share=plan.n_active / plan.n_total, launches=launches,
              launches_per_frame=per_frame, peak_mem_gb=peak, card=card)
-        want = {k: (2 * n_tiles if k in on_path else 0) for k in per_frame}
+        # every MLP launch of the path on the wgmma design
+        want = {k: (2 * n_tiles if k.removesuffix("_wgmma") in on_path else 0)
+                for k in per_frame}
         if per_frame != want:
             fail(f"render {label}: launches per frame {per_frame}, want {want}")
         for k in on_path:
             if k != "ray_expand" or label == "unfused":
-                summary[k]["launches"] = launches[k]
+                summary[k]["launches"] = launches[k + "_wgmma" if k.startswith("fused")
+                                                  else k]
         for name, x in zip(("rgb", "embed", "depth"), out):
             if not torch.isfinite(x).all():
                 fail(f"render {label}: non-finite {name}")

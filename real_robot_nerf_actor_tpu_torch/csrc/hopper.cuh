@@ -65,6 +65,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous device memory into shared memory
+// by the TMA unit, completing on `bar` like the tensor loads
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1, int c2,
                                             int c3) {
@@ -87,8 +97,25 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ------------------------------------------------ cp.async, proxies
+// 16 bytes from device to shared memory without a register (cp.async, L2
+// only); cp_async_wait_all waits for this thread's copies
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before the
+// async-proxy reads (wgmma operands) that follow a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
-// Descriptor of a bf16 tile in shared memory laid out by a TMA load with
+// Descriptor of a tile in shared memory laid out by a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes, 8-row atoms of 1024 bytes
 // (1024-byte aligned). `sbo` is the byte stride between 8-row atoms along
 // the non-contiguous dimension: 1024 for densely stacked rows.
@@ -99,6 +126,19 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t sbo = 102
   d |= static_cast<uint64_t>(1) << 16;                  // LBO: unused here
   d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
   d |= static_cast<uint64_t>(1) << 62;                  // 128-byte swizzle
+  return d;
+}
+
+// The same for CU_TENSOR_MAP_SWIZZLE_32B: K-major rows of 32 bytes (the 16-
+// byte halves swapped on rows 4-7 of each 8), 8-row atoms of 256 bytes
+// (256-byte aligned); `sbo` 256 for densely stacked rows.
+__device__ __forceinline__ uint64_t desc_sw32(const void* p, uint32_t sbo = 256) {
+  const uint32_t addr = smem_u32(p);
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1) << 16;                  // LBO: unused here
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  d |= static_cast<uint64_t>(3) << 62;                  // 32-byte swizzle
   return d;
 }
 
@@ -124,6 +164,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// the same for an int32 accumulator
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define HOPPER_D32                                                            \
@@ -167,6 +214,58 @@ __device__ __forceinline__ void wgmma_rs_64x64x16_tb(float (&d)[32],
 
 #undef HOPPER_D32
 #undef HOPPER_D32_LIST
+
+#define HOPPER_R8(i)                                                           \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),  \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define HOPPER_R64                                                             \
+  HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24), HOPPER_R8(32),     \
+      HOPPER_R8(40), HOPPER_R8(48), HOPPER_R8(56)
+#define HOPPER_LIST64                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "     \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "     \
+  "%58, %59, %60, %61, %62, %63"
+
+// d (64 x N, s32) (+)= A (64 x 32) . B (32 x N), s8 x s8, both from shared
+// memory K-major (the only layout 8-bit wgmma takes); scale_d 0 overwrites
+// d. N = 2 * (registers of d): 256 or 128. Integer sums are exact.
+template <int N>
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8_ss<128>(int (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" HOPPER_LIST64
+      "}, %64, %65, p;\n}\n"
+      : HOPPER_R64
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_ss<256>(int (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" HOPPER_LIST64 ", "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+      "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : HOPPER_R64, HOPPER_R8(64), HOPPER_R8(72), HOPPER_R8(80), HOPPER_R8(88),
+        HOPPER_R8(96), HOPPER_R8(104), HOPPER_R8(112), HOPPER_R8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef HOPPER_R8
+#undef HOPPER_R64
+#undef HOPPER_LIST64
 
 // four 8x8 bf16 matrices; lane i gives the address of row (i & 7) of
 // matrix (i >> 3)
@@ -215,11 +314,11 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map with 128-byte swizzle; dims and byte strides innermost
-// first (strides[0] is the stride of dims[1]); out-of-bounds reads are zero.
-inline int encode_bf16_sw128(CUtensorMap* map, void* base, int rank,
-                             const uint64_t* dims, const uint64_t* strides,
-                             const uint32_t* box) {
+// A tiled tensor map; dims and byte strides innermost first (strides[0] is
+// the stride of dims[1]); out-of-bounds reads are zero.
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, void* base,
+                        int rank, const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   cuuint64_t gdim[5], gstride[4];
@@ -230,9 +329,25 @@ inline int encode_bf16_sw128(CUtensorMap* map, void* base, int rank,
     estride[i] = 1;
     if (i + 1 < rank) gstride[i] = strides[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, gdim, gstride,
-                  bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = fn(map, type, rank, base, gdim, gstride, bdim, estride,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A bf16 tensor map with 128-byte swizzle.
+inline int encode_bf16_sw128(CUtensorMap* map, void* base, int rank,
+                             const uint64_t* dims, const uint64_t* strides,
+                             const uint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides,
+                      box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A tensor map of bytes (int8 codes move as uint8: TMA only copies them),
+// with the given swizzle; the box's inner extent must not exceed its span.
+inline int encode_u8(CUtensorMap* map, void* base, int rank, const uint64_t* dims,
+                     const uint64_t* strides, const uint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box,
+                      swizzle);
 }

@@ -44,12 +44,13 @@ _SIGNATURES = {
     },
     "resnetfc_int8": {
         # zi, 10 weight/scale pointers, out, hidden; n, d_latent, n_aux,
-        # d_hidden, n_blocks, combine_layer, k_in, k_lat, quantized; stream
-        "resnetfc_int8_fwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+        # d_hidden, n_blocks, combine_layer, k_in, k_lat, quantized, design;
+        # stream
+        "resnetfc_int8_fwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
         + [ctypes.c_void_p],
         # vox, flat, w8, aux, 10 weight/scale pointers, out, hidden; the same
-        # ints and vox_f32; stream
-        "gather_resnetfc_int8_fwd": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+        # ints, vox_f32 and design; stream
+        "gather_resnetfc_int8_fwd": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11
         + [ctypes.c_void_p],
     },
 }

@@ -23,6 +23,13 @@ rounding point; the int8 products run exactly in float64 (each product an
 integer of magnitude at most 127^2, a 512-term sum far below 2^53). On a
 CUDA tensor the wrappers launch the kernel; on a CPU tensor they run the
 plain version.
+
+Two kernel designs share those rounding points (`mlp_design` picks one):
+"wgmma", s8 wgmma on a ring of the int8 block weights (one bulk copy a
+slice, from the copy `ring_layout` makes at pack time), for the int8 calls
+at d_hidden 256 or 512 (the serving configs); "mma_sync", the first kernel,
+for every other call. Both wrappers count the wgmma launches in
+`wgmma_launches` beside `launches`.
 """
 from __future__ import annotations
 
@@ -149,14 +156,31 @@ def _kernel_layout(packed: dict, d_latent: int, num_freqs: int, head_dims: int) 
         wz = torch.zeros(16, dtype=torch.bfloat16, device=w_in.device)
     bz = packed["bz"].contiguous() if packed["bz"].numel() else torch.zeros(
         1, device=w_in.device)
-    return {
+    wq = packed["wq"].transpose(1, 2).contiguous()
+    kernel = {
         "w_in": w_in, "b_in": packed["b_in"].contiguous(), "wz": wz, "bz": bz,
-        "wq": packed["wq"].transpose(1, 2).contiguous(),
-        "ws": packed["ws"].contiguous(), "bq": packed["bq"].contiguous(),
+        "wq": wq, "ws": packed["ws"].contiguous(), "bq": packed["bq"].contiguous(),
         "w_out": packed["w_out"][:, :8].T.contiguous(),
         "b_out": packed["b_out"][:8].contiguous(),
         "d_latent": d_latent, "n_aux": n_aux, "k_in": k_in, "k_lat": k_lat,
     }
+    if wq.dtype == torch.int8 and wq.shape[2] % 32 == 0:
+        kernel["wq_ring"] = ring_layout(wq)
+    return kernel
+
+
+def ring_layout(wq: torch.Tensor) -> torch.Tensor:
+    """The int8 block matrices wq (M, N, K), (out, in), as the wgmma kernel's
+    weight ring copies them: each matrix's K / 32 slices in order, each the
+    contiguous (N x 32)-byte shared-memory image of the slice with the
+    32-byte swizzle (rows of 32 bytes, the two 16-byte halves swapped on
+    rows whose bit 2 is set), so that one bulk copy moves a slice. Byte
+    (n, 32 s + c) of matrix m lands at ((m K / 32 + s) N + n) 32 +
+    (c ^ 16 ((n >> 2) & 1))."""
+    m, n, k = wq.shape
+    x = wq.reshape(m, n, k // 32, 2, 16).permute(0, 2, 1, 3, 4)
+    swap = ((torch.arange(n, device=wq.device) >> 2) & 1).bool()[None, None, :, None, None]
+    return torch.where(swap, x.flip(3), x).contiguous().reshape(m, n, k)
 
 
 def slice_gather_weights(packed: dict, d_latent: int = 64, num_freqs: int = 6) -> dict:
@@ -291,6 +315,34 @@ def fused_gather_resnetfc_int8_plain(vox_rows: torch.Tensor, flat: torch.Tensor,
                            quantized, scales)
 
 
+DESIGNS = ("wgmma", "mma_sync")
+
+
+def mlp_design(quantized: bool, d_hidden: int, k_in: int, k_lat: int) -> str:
+    """The kernel design that runs a call: "wgmma" for int8 block products
+    at d_hidden 256 or 512 with k_in <= 112 and k_lat <= 64 (what shared
+    memory holds beside the fp32 residual), "mma_sync" (the first kernel)
+    for every other call."""
+    if quantized and d_hidden in (256, 512) and k_in <= 112 and k_lat <= 64:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _pick_design(design, quantized: bool, kp: dict) -> str:
+    """`design` None takes mlp_design's; a named one must be able to run the
+    call (the first kernel runs every call)."""
+    d_hidden = kp["b_in"].shape[0]
+    routed = mlp_design(quantized, d_hidden, kp["k_in"], kp["k_lat"])
+    if design is None:
+        return routed
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r}: one of {DESIGNS}")
+    if design == "wgmma" and routed != "wgmma":
+        raise ValueError(f"the wgmma design does not take quantized={quantized}, "
+                         f"d_hidden {d_hidden}, k_in {kp['k_in']}, k_lat {kp['k_lat']}")
+    return design
+
+
 def _check_weights(kp: dict, dev, quantized: bool, d_hidden: int, n_blocks: int):
     wdt = torch.int8 if quantized else torch.bfloat16
     if kp["wq"].dtype != wdt:
@@ -303,21 +355,26 @@ def _check_weights(kp: dict, dev, quantized: bool, d_hidden: int, n_blocks: int)
             raise ValueError(f"packed weight {k} must be contiguous on {dev}")
 
 
-def _weight_ptrs(kp, scales):
-    return [kp[k].data_ptr() for k in ("w_in", "b_in", "wz", "bz", "wq", "ws", "bq",
+def _weight_ptrs(kp, scales, design):
+    """The kernel's weight pointers; the wgmma design reads the block
+    matrices in ring_layout."""
+    wq = "wq_ring" if design == "wgmma" else "wq"
+    return [kp[k].data_ptr() for k in ("w_in", "b_in", "wz", "bz", wq, "ws", "bq",
                                        "w_out", "b_out")] \
         + [None if scales is None else scales.data_ptr()]
 
 
 def fused_resnetfc_int8(zi: torch.Tensor, packed: dict, n_blocks: int = 5,
                         combine_layer: int = 3, quantized: bool = True,
-                        act_scales: ActScales = None):
+                        act_scales: ActScales = None, design: str = None):
     """zi: (N, 128) bf16 from pack_mlp_input (or the renderer's assembly).
     Returns (out (N, 128) bf16, head dims in the leading columns; hidden
     (N, H) bf16, the relu'd last hidden). act_scales: None (dynamic per-row
     scales), 2*n_blocks host floats, or a (2, 2*n_blocks) tensor from
-    static_act_scales."""
+    static_act_scales. design: None (mlp_design's choice), or "mma_sync" /
+    "wgmma" to run one kernel design (for comparing the two)."""
     if zi.device.type == "cpu":
+        _pick_design(design, quantized, packed["kernel"])
         return fused_resnetfc_int8_plain(zi, packed, n_blocks, combine_layer,
                                          quantized, act_scales)
     if not zi.is_cuda:
@@ -327,6 +384,7 @@ def fused_resnetfc_int8(zi: torch.Tensor, packed: dict, n_blocks: int = 5,
         raise ValueError("fused_resnetfc_int8: zi must be a contiguous (N, 128) "
                          f"bf16 tensor, got {tuple(zi.shape)} {zi.dtype}")
     kp = packed["kernel"]
+    design = _pick_design(design, quantized, kp)
     d_hidden = kp["b_in"].shape[0]
     _check_weights(kp, zi.device, quantized, d_hidden, n_blocks)
     scales = _as_scales(act_scales, n_blocks, zi.device) if quantized else None
@@ -336,28 +394,34 @@ def fused_resnetfc_int8(zi: torch.Tensor, packed: dict, n_blocks: int = 5,
     lib = _build.load("resnetfc_int8")
     with torch.cuda.device(zi.device):
         code = lib.resnetfc_int8_fwd(
-            zi.data_ptr(), *_weight_ptrs(kp, scales), out.data_ptr(), hidden.data_ptr(),
+            zi.data_ptr(), *_weight_ptrs(kp, scales, design), out.data_ptr(), hidden.data_ptr(),
             n, kp["d_latent"], kp["n_aux"], d_hidden, n_blocks, combine_layer, kp["k_in"],
-            kp["k_lat"], int(quantized), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, "fused_resnetfc_int8")
+            kp["k_lat"], int(quantized), int(design == "wgmma"),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, f"fused_resnetfc_int8 ({design})")
     fused_resnetfc_int8.launches += 1
+    fused_resnetfc_int8.wgmma_launches += design == "wgmma"
     return out, hidden
 
 
 fused_resnetfc_int8.launches = 0
+fused_resnetfc_int8.wgmma_launches = 0
 
 
 def fused_gather_resnetfc_int8(vox_rows: torch.Tensor, flat: torch.Tensor,
                                w8: torch.Tensor, aux: torch.Tensor, packed: dict,
                                d_latent: int = 64, num_freqs: int = 6,
                                n_blocks: int = 5, combine_layer: int = 3,
-                               quantized: bool = True, act_scales: ActScales = None):
+                               quantized: bool = True, act_scales: ActScales = None,
+                               design: str = None):
     """Gather-fused serving forward. vox_rows: (cells, 8*d_latent) bf16/fp32,
     the corner-expanded grid as rows; flat: (N,) int32 in-bounds row
     indices; w8: (8, N) fp32 lerp weights; aux: (6 + 3F, N) bf16 [canon |
     dirs | wrapped phases] (all from ray_expand). Returns (out (N, 128)
-    bf16, hidden (N, H) bf16), rows in the input order."""
+    bf16, hidden (N, H) bf16), rows in the input order. design: as for
+    fused_resnetfc_int8."""
     if vox_rows.device.type == "cpu":
+        _pick_design(design, quantized, packed["kernel"])
         return fused_gather_resnetfc_int8_plain(vox_rows, flat, w8, aux, packed,
                                                 d_latent, num_freqs, n_blocks,
                                                 combine_layer, quantized, act_scales)
@@ -377,6 +441,7 @@ def fused_gather_resnetfc_int8(vox_rows: torch.Tensor, flat: torch.Tensor,
         raise ValueError("fused_gather_resnetfc_int8: bad inputs "
                          f"{tuple(vox_rows.shape)} {vox_rows.dtype}, {tuple(flat.shape)} "
                          f"{flat.dtype}, {tuple(w8.shape)}, {tuple(aux.shape)}")
+    design = _pick_design(design, quantized, kp)
     d_hidden = kp["b_in"].shape[0]
     _check_weights(kp, dev, quantized, d_hidden, n_blocks)
     scales = _as_scales(act_scales, n_blocks, dev) if quantized else None
@@ -386,16 +451,18 @@ def fused_gather_resnetfc_int8(vox_rows: torch.Tensor, flat: torch.Tensor,
     with torch.cuda.device(dev):
         code = lib.gather_resnetfc_int8_fwd(
             vox_rows.data_ptr(), flat.data_ptr(), w8.data_ptr(), aux.data_ptr(),
-            *_weight_ptrs(kp, scales), out.data_ptr(), hidden.data_ptr(), n, d_latent,
+            *_weight_ptrs(kp, scales, design), out.data_ptr(), hidden.data_ptr(), n, d_latent,
             kp["n_aux"], d_hidden, n_blocks, combine_layer, kp["k_in"], kp["k_lat"],
-            int(quantized), int(vox_rows.dtype == torch.float32),
+            int(quantized), int(vox_rows.dtype == torch.float32), int(design == "wgmma"),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, "fused_gather_resnetfc_int8")
+    _build.check(lib, code, f"fused_gather_resnetfc_int8 ({design})")
     fused_gather_resnetfc_int8.launches += 1
+    fused_gather_resnetfc_int8.wgmma_launches += design == "wgmma"
     return out, hidden
 
 
 fused_gather_resnetfc_int8.launches = 0
+fused_gather_resnetfc_int8.wgmma_launches = 0
 
 
 def mlp_ops_per_row(d_hidden: int, n_blocks: int, combine_layer: int, k_in: int,

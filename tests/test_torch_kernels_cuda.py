@@ -360,10 +360,11 @@ def test_fused_resnetfc_int8(cuda, mode, n):
             {k: v for k, v in _random_mlp_state().items()}, quantize=False)
         amax = rf.capture_act_amax(zi.cpu(), pb)
         scales = [float(a) * 1.05 / 127 + 1e-8 for a in amax]
-    launches = rf.fused_resnetfc_int8.launches
+    launches, wgmma = rf.fused_resnetfc_int8.launches, rf.fused_resnetfc_int8.wgmma_launches
     got = rf.fused_resnetfc_int8(zi, packed, quantized=quantized, act_scales=scales)
     torch.cuda.synchronize()
     assert rf.fused_resnetfc_int8.launches == launches + 1
+    assert rf.fused_resnetfc_int8.wgmma_launches == wgmma + quantized
     want = rf.fused_resnetfc_int8_plain(zi, packed, quantized=quantized,
                                         act_scales=scales)
     _assert_mlp_close(got, want)
@@ -401,17 +402,54 @@ def test_gather_fused_equals_unfused_chain(cuda, mode, rows_dtype):
         scales = [float(a) * 1.05 / 127 + 1e-8 for a in amax]
     want = rf.fused_resnetfc_int8(zi, packed, act_scales=scales)
     launches = rf.fused_gather_resnetfc_int8.launches
+    wgmma = rf.fused_gather_resnetfc_int8.wgmma_launches
     got = rf.fused_gather_resnetfc_int8(rows_all, flat, w8, aux, packed, act_scales=scales)
+    prev = rf.fused_gather_resnetfc_int8(rows_all, flat, w8, aux, packed, act_scales=scales,
+                                         design="mma_sync")
     torch.cuda.synchronize()
-    assert rf.fused_gather_resnetfc_int8.launches == launches + 1
-    for g, w in zip(got, want):
+    assert rf.fused_gather_resnetfc_int8.launches == launches + 2
+    assert rf.fused_gather_resnetfc_int8.wgmma_launches == wgmma + 1
+    for g, w, p in zip(got, want, prev):
         assert torch.equal(g, w)
+        assert torch.equal(g, p)
     plain = rf.fused_gather_resnetfc_int8_plain(rows_all, flat, w8, aux, packed,
                                                 act_scales=scales)
     _assert_mlp_close(got, plain)
+
+
+def _static_scales(rf, zi, d_hidden=512):
+    """Static scales calibrated on zi with the bf16 chain of the same
+    weights, 5% headroom, as the renderer calibrates."""
+    sd = {k: v.to(zi.device) for k, v in _random_mlp_state(d_hidden=d_hidden).items()}
+    pb = rf.pack_resnetfc_params(sd, d_hidden=d_hidden, quantize=False)
+    return [float(a) * 1.05 / 127 + 1e-8 for a in rf.capture_act_amax(zi, pb)]
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+@pytest.mark.parametrize("n,d_hidden", [(64, 512), (8192 + 37, 512), (65536, 512),
+                                        (8192 + 37, 256)])
+def test_resnetfc_wgmma_equals_mma_sync(cuda, mode, n, d_hidden):
+    """The wgmma design (the int8 main path) against the first kernel
+    (design="mma_sync"): out and hidden equal bit for bit, since int32 sums
+    are exact in any order and both run the same bf16 code and rounding
+    points."""
+    rf, packed, zi = _mlp_case(cuda, True, n, d_hidden=d_hidden)
+    scales = _static_scales(rf, zi, d_hidden) if mode == "static" else None
+    launches, wgmma = rf.fused_resnetfc_int8.launches, rf.fused_resnetfc_int8.wgmma_launches
+    got = rf.fused_resnetfc_int8(zi, packed, act_scales=scales)
+    prev = rf.fused_resnetfc_int8(zi, packed, act_scales=scales, design="mma_sync")
+    torch.cuda.synchronize()
+    assert rf.fused_resnetfc_int8.launches == launches + 2
+    assert rf.fused_resnetfc_int8.wgmma_launches == wgmma + 1
+    for g, p in zip(got, prev):
+        assert g.shape == p.shape and torch.isfinite(g.float()).all()
+        assert torch.equal(g, p)
+    assert got[1].float().abs().max().item() > 0
 
 
 def test_fused_resnetfc_refuses_wrong_weights(cuda):
     rf, packed, zi = _mlp_case(cuda, False, 64)
     with pytest.raises(TypeError, match="quantize"):
         rf.fused_resnetfc_int8(zi, packed, quantized=True)
+    with pytest.raises(ValueError, match="wgmma design does not take"):
+        rf.fused_resnetfc_int8(zi, packed, quantized=False, design="wgmma")
