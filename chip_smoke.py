@@ -17,16 +17,20 @@ Phases, each reported on its own line:
      their check; the conv line adds the brick and the bytes of x the
      kernel loads over x's size. These two also report the device time of
      the kernel and of the library call (torch.profiler), without the host's
-     launch time that bounds a single timed call of a few tens of us;
+     launch time that bounds a single timed call of a few tens of us. The
+     spatial_stats_3d lines time the first (Triton) design beside the
+     kernel (prev_ms, prev_device_ms), check that two calls give the same
+     bits, and that the tolerance sees the kernel's last slab dropped;
   3. act: PolicyServer with the configs/serve.yaml policy (UNet encoder,
      100^3 x 10 voxels, 220000 points, 2048 x 512 latents, depth 6, bf16,
      random weights from a seeded generator) and the three kernel knobs on,
      driven by run_deployment over a ReplayRobotIO of the synthetic scene
      (WARMUP untimed steps, then STEPS timed ones);
      launch counts per step must be flash_attention 8, conv3d_k3 1,
-     spatial_stats_3d 3, and the attention and conv calls must all go
-     through the wgmma/TMA kernels (their own counters). Then the same steps with the knobs off (the plain
-     versions), the decoded actions side by side and the largest logit gap,
+     spatial_stats_3d 3, the attention and conv calls must all go
+     through the wgmma/TMA kernels and the stats calls through
+     csrc/spatial_stats.cu (their own counters). Then the same steps with
+     the knobs off (the plain versions), the decoded actions side by side and the largest logit gap,
      and one step of each path under torch.profiler (device time by
      kernel, device busy share).
   4. render: the serving renderer of configs/serve.yaml (128 x 128 frame,
@@ -51,6 +55,10 @@ Phases, each reported on its own line:
      rgb halved, sigma read in ray-major instead of sample-major order)
      must each fail that frame check. One frame of each setting runs under
      torch.profiler.
+  5. grad: forward and backward of the `final` conv (100^3, 128 -> 64,
+     bf16) and of corner_lerp (65536 x 512 bf16) with the kernel against
+     the plain path (a planted fault each must fail the check), then the
+     five kernels without a backward must refuse grad and run under no_grad.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -71,7 +79,6 @@ STEPS = 10
 # between ~20 and ~24 ms and settles after some 50 steps
 WARMUP = 60
 STATS_TOL = 1e-5   # stats error, of the channel's softmax denominator
-STATS_SLAB = 2048  # rows per program of the stats kernel
 ACT_TOL = 0.1   # logit gap of the kernel path vs the plain path, of the logit scale
 # the renderer: section `renderer:` of configs/serve.yaml (tests hold the two equal)
 SERVE_RENDERER = dict(image_width=128, image_height=128, z_near=1.2, z_far=4.0,
@@ -132,20 +139,33 @@ def median_ms(torch, fn, reps):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def profiled_ms(torch, fn, reps):
+def profiled_ms(torch, fn, reps, flush=None):
     """Device time of one call, from torch.profiler: the sum of the device
     events of `reps` calls over `reps`. Unlike median_ms it leaves out the
     time the host takes to launch, which bounds calls of a few tens of
-    microseconds."""
+    microseconds. With `flush`, it runs before each call (to evict the L2)
+    and its own device events are left out of the sum."""
     from torch.profiler import ProfilerActivity, profile
+
+    def device_keys(run):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    skip = set(device_keys(flush)) if flush else set()
+
+    def run():
         for _ in range(reps):
+            if flush:
+                flush()
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.self_device_time_total > 0) / reps / 1e3
+
+    total = sum(t for k, t in device_keys(run).items() if k not in skip)
+    return total / reps / 1e3 if total > 0 else None   # None: the profiler saw nothing
 
 
 def bound(flops, nbytes, dtype):
@@ -523,6 +543,136 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
              device_events=sum(x[2] for x in rows),
              top=[{"name": nm[:80], "ms": ms, "count": c} for nm, ms, c in rows[:15]],
              card=card)
+    return r._packed
+
+
+def grad_phase(torch, dev, card, packed):
+    """Phase 5: gradients on the card. `final`'s conv (100^3, 128 -> 64,
+    bf16) and corner_lerp (65536 x 512 bf16), forward and backward with the
+    kernel against the plain path, each with a planted fault that must fail
+    its check; then the five kernels without a backward must refuse an input
+    that requires a gradient, and run under no_grad."""
+    from real_robot_nerf_actor_tpu_torch.ops import resnetfc_cuda as rf
+    from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import flash_attention
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
+        conv3d_k3, conv3d_k3_plain, conv3d_k3_vjp)
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
+    from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import ray_expand
+    from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import spatial_stats_3d
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def gap_of_scale(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    # the conv: one output gradient through the kernel's Function and through
+    # autograd of the plain version; the Function's gradients must also equal
+    # its own backward code (conv3d_k3_vjp) bit for bit. Tolerances of each
+    # gradient's scale: the bf16 output, dx and dk 2^-7 (one rounding, sums
+    # in another order), the fp32 db 1e-5.
+    torch.backends.cudnn.deterministic = True
+    x = randn(1, 100, 100, 100, 128).requires_grad_()
+    w = randn(3, 3, 3, 128, 64, scale=0.03).requires_grad_()
+    b = randn(64, dtype=torch.float32, scale=0.1).requires_grad_()
+    g = randn(1, 100, 100, 100, 64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = conv3d_k3(x, w, b)
+    y.backward(g)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    got = (x.grad, w.grad, b.grad)
+    with torch.no_grad():
+        same = all(torch.equal(a, c) for a, c in zip(got, conv3d_k3_vjp(x, w, g)))
+    xp, wp, bp = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    yp = conv3d_k3_plain(xp, wp, bp)
+    yp.backward(g)
+    torch.cuda.synchronize()
+    gaps = {"out": gap_of_scale(y.detach(), yp.detach())}
+    gaps.update({k: gap_of_scale(a, c) for k, a, c in
+                 zip(("dx", "dk", "db"), got, (xp.grad, wp.grad, bp.grad))})
+    tols = {"out": 2 ** -7, "dx": 2 ** -7, "dk": 2 ** -7, "db": 1e-5}
+    # planted: the taps of dk flipped (the error of a transposed conv whose
+    # kernel is not flipped back)
+    flipped = gap_of_scale(w.grad.flip(0, 1, 2), wp.grad)
+    emit("grad", name="conv3d_k3", shape=[1, 100, 100, 100, 128, 64], dtype="bfloat16",
+         gap_of_scale=gaps, tol_of_scale=tols, equals_own_backward=same,
+         dk_taps_flipped_gap=flipped, kernel_fwd_bwd_s=kernel_s, card=card)
+    torch.backends.cudnn.deterministic = False
+    if not same:
+        fail("grad conv3d_k3: the Function's gradients differ from conv3d_k3_vjp")
+    if any(gaps[k] > tols[k] for k in gaps):
+        fail(f"grad conv3d_k3: {gaps} over {tols}")
+    if not flipped > tols["dk"]:
+        fail(f"grad conv3d_k3: the check does not see dk's taps flipped ({flipped})")
+    del x, w, g, y, yp, xp, wp, got
+
+    # corner_lerp: out and d_rows within one bf16 ulp of each value, d_w
+    # 1e-5 of its scale; planted: d_w with its corners rolled
+    m = 65536
+    rows = randn(m, 512).requires_grad_()
+    w8 = torch.rand((8, m), generator=gen, device=dev).requires_grad_()
+    g = randn(m, 64)
+    y = corner_lerp(rows, w8)
+    y.backward(g)
+    rp, wp = rows.detach().clone().requires_grad_(), w8.detach().clone().requires_grad_()
+    yp = corner_lerp_plain(rp, wp)
+    yp.backward(g)
+    torch.cuda.synchronize()
+
+    def within_ulp(a, c):   # the kernel line's check: 2^-7 of each value (+ 1e-6)
+        return bool(((a.float() - c.float()).abs() <= 2 ** -7 * c.float().abs() + 1e-6)
+                    .all())
+
+    ulps = {"out": within_ulp(y.detach(), yp.detach()),
+            "d_rows": within_ulp(rows.grad, rp.grad)}
+    d_w_gap = gap_of_scale(w8.grad, wp.grad)
+    rolled = gap_of_scale(w8.grad.roll(1, 0), wp.grad)
+    emit("grad", name="corner_lerp", shape=[m, 512], dtype="bfloat16",
+         within_one_ulp=ulps, d_w_gap_of_scale=d_w_gap, tol_of_scale=1e-5,
+         d_w_corners_rolled_gap=rolled, card=card)
+    if not (all(ulps.values()) and d_w_gap <= 1e-5):
+        fail(f"grad corner_lerp: kernel path vs plain path {ulps}, d_w {d_w_gap}")
+    if not rolled > 1e-5:
+        fail(f"grad corner_lerp: the check does not see d_w's corners rolled ({rolled})")
+    del rows, w8, g, y, yp, rp, wp
+
+    # the five kernels without a backward refuse grad, and run under no_grad
+    n = 256
+    q = randn(1, 1, 128, 64).requires_grad_()
+    vol = randn(1, 20, 20, 20, 128, dtype=torch.float32).requires_grad_()
+    rays = torch.cat([randn(n, 6, dtype=torch.float32, scale=0.3),
+                      torch.zeros((n, 2), device=dev)], 1)
+    z = torch.rand((n, 4), generator=gen, device=dev).requires_grad_()
+    zi = torch.zeros((n, 128), dtype=torch.bfloat16, device=dev).requires_grad_()
+    vox = torch.zeros((27, 512), dtype=torch.bfloat16, device=dev).requires_grad_()
+    flat = torch.zeros(n, dtype=torch.int32, device=dev)
+    w8 = torch.full((8, n), 0.125, device=dev)
+    aux = torch.zeros((packed["kernel"]["n_aux"], n), dtype=torch.bfloat16, device=dev)
+    calls = {
+        "flash_attention": lambda: flash_attention(q, q, q),
+        "spatial_stats_3d": lambda: spatial_stats_3d(vol),
+        "ray_expand": lambda: ray_expand(rays, z, (2, 2, 2), (0, 0, 0, 1, 1, 1)),
+        "fused_resnetfc_int8": lambda: rf.fused_resnetfc_int8(zi, packed),
+        "fused_gather_resnetfc_int8": lambda: rf.fused_gather_resnetfc_int8(
+            vox, flat, w8, aux, packed),
+    }
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = name in str(e) and "requires a gradient" in str(e)
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    emit("grad", name="refusals", refused_under_grad=refused, card=card)
+    if not all(refused.values()):
+        fail(f"grad: a kernel without a backward did not refuse grad: {refused}")
 
 
 def mlp_err(got, want):
@@ -563,7 +713,7 @@ def main():
     from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
         BRICK, conv3d_k3, conv3d_k3_plain, halo_bytes)
     from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import (
-        spatial_stats_3d, spatial_stats_3d_plain)
+        spatial_stats_3d, spatial_stats_3d_plain, spatial_stats_3d_triton_prev)
     from real_robot_nerf_actor_tpu_torch.train.serve import (
         PolicyServer, ServeConfig, run_deployment)
 
@@ -705,39 +855,69 @@ def main():
 
     # spatial_stats_3d: d0 (fp32), dec (fp32), u (bf16), each on inputs of
     # scale 0.3 (a few rows carry a channel's sums at the temperature 0.01)
-    # and 0.01 (every row counts, the last partial slab's included). Error
-    # relative to each channel's denominator, which bounds |numerators|
-    # (|lin| <= 1): a numerator near zero has no relative error of its own.
+    # and 0.01 (every row counts, the kernel's last, shorter slab included).
+    # Error relative to each channel's denominator, which bounds
+    # |numerators| (|lin| <= 1): a numerator near zero has no relative error
+    # of its own. The first (Triton) design is timed beside it (prev_ms).
+    l2_evict = torch.zeros(2 ** 27, dtype=torch.float32, device=dev)   # 512 MB
+
+    def flush():   # a read, so that the L2 is left holding clean lines
+        l2_evict.sum()
+
     for v, c, dtype in [(100, 64, torch.float32), (20, 128, torch.float32),
                         (100, 64, torch.bfloat16)]:
         dname = str(dtype).split(".")[1]
-        errs, errs_of_den = {}, {}
+        errs, errs_of_den, prev_errs = {}, {}, {}
         for scale in (0.3, 0.01):
             feat = randn(1, v, v, v, c, dtype=dtype, scale=scale)
+            cuda_launches = spatial_stats_3d.cuda_launches
             got = spatial_stats_3d(feat)
             want = spatial_stats_3d_plain(feat)
+            prev = spatial_stats_3d_triton_prev(feat)
             torch.cuda.synchronize()
+            if spatial_stats_3d.cuda_launches != cuda_launches + 1:
+                fail(f"spatial_stats_3d {v}^3x{c}: did not launch csrc/spatial_stats.cu")
             den = want[..., :1]
             errs[scale] = (got - want).abs().max().item()
             errs_of_den[scale] = ((got - want).abs() / den).max().item()
-        # the tolerance must reject a kernel that drops the last partial slab
+            prev_errs[scale] = ((prev - want).abs() / den).max().item()
+            if not torch.equal(spatial_stats_3d(feat), got):
+                fail(f"spatial_stats_3d {v}^3x{c}: two calls differ (the fold's order)")
+        pl = spatial_stats_3d.last_plan
+        # the tolerance must reject a kernel that drops its last (shorter) slab
         n_rows = v ** 3
+        tail = n_rows - (pl.slabs - 1) * pl.rows_per_slab
         cut = feat.reshape(1, n_rows, c).clone()
-        cut[:, n_rows - (n_rows % STATS_SLAB or STATS_SLAB):] = float("-inf")
+        cut[:, n_rows - tail:] = float("-inf")
         tail_err = ((spatial_stats_3d_plain(cut.reshape(feat.shape)) - want).abs()
                     / den).max().item()
         del cut
         ms = median_ms(torch, lambda: spatial_stats_3d(feat), 20)
+        prev_ms = median_ms(torch, lambda: spatial_stats_3d_triton_prev(feat), 20)
         plain_ms = median_ms(torch, lambda: spatial_stats_3d_plain(feat), 5)
+        dev_ms = profiled_ms(torch, lambda: spatial_stats_3d(feat), 20)
+        prev_dev_ms = profiled_ms(torch, lambda: spatial_stats_3d_triton_prev(feat), 20)
+        # the same with the L2 evicted before each call (the volume is
+        # written by the layer before it on the act step; these calls
+        # would otherwise find part of it in L2)
+        cold_ms = profiled_ms(torch, lambda: spatial_stats_3d(feat), 20, flush)
+        prev_cold_ms = profiled_ms(torch, lambda: spatial_stats_3d_triton_prev(feat), 20,
+                                   flush)
         # ~10 fp32 operations an element (sub, mul, exp, 4 adds, 3 muls)
         b_ms, b_by = bound(10.0 * feat.numel(), feat.numel() * feat.element_size()
-                           + c * 4 + got.numel() * 4, "float32")
+                           + got.numel() * 4, "float32")
         emit("kernel", name="spatial_stats_3d", shape=[1, v, v, v, c], dtype=dname,
+             design="bulk ring" if pl.bulk else "plain loads", slabs=pl.slabs,
+             rows_per_slab=pl.rows_per_slab, stage_rows=pl.stage_rows,
              calls_per_step=1, input_scales=list(errs), max_abs_err=max(errs.values()),
              max_err_of_den=list(errs_of_den.values()), tol_of_den=STATS_TOL,
-             tail_dropped_err_of_den=tail_err,
-             ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+             prev_err_of_den=list(prev_errs.values()), tail_dropped_err_of_den=tail_err,
+             ms=ms, prev_ms=prev_ms, plain_ms=plain_ms, device_ms=dev_ms,
+             prev_device_ms=prev_dev_ms, cold_l2_device_ms=cold_ms,
+             prev_cold_l2_device_ms=prev_cold_ms, library_ms=None, bound_ms=b_ms,
              bound_by=b_by, card=card)
+        if not pl.bulk:
+            fail(f"spatial_stats_3d {v}^3x{c}: the act step's volume missed the bulk ring")
         if not max(errs_of_den.values()) <= STATS_TOL:
             fail(f"spatial_stats_3d {v}^3x{c} {dname}: error {errs_of_den} "
                  "of the denominator")
@@ -747,6 +927,7 @@ def main():
         record("spatial_stats_3d", 1, max(errs.values()), ms, plain_ms, b_ms, b_by,
                None)
         del feat
+    del l2_evict
 
     # ------------------------------------------------------------ 3. act
     cfg_on = PerceiverConfig(depth=6, voxel_size=100, initial_dim=10,
@@ -789,10 +970,12 @@ def main():
             for c in counters:
                 c.launches = 0
             flash_attention.wgmma_launches = conv3d_k3.wgmma_launches = 0
+            spatial_stats_3d.cuda_launches = 0
             trace = run_deployment(server, ReplayRobotIO(steps), num_steps=STEPS)
             launches = {c.__name__: c.launches for c in counters}
             launches.update(flash_attention_wgmma=flash_attention.wgmma_launches,
-                            conv3d_k3_wgmma=conv3d_k3.wgmma_launches)
+                            conv3d_k3_wgmma=conv3d_k3.wgmma_launches,
+                            spatial_stats_3d_cuda=spatial_stats_3d.cuda_launches)
         finally:
             server.act = act
         return trace, times, launches
@@ -804,14 +987,17 @@ def main():
          setup_s=setup_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          card=card)
     want_counts = {"flash_attention": 8, "conv3d_k3": 1, "spatial_stats_3d": 3,
-                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1}
+                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1,
+                   "spatial_stats_3d_cuda": 3}
     if per_step != want_counts:
         fail(f"launches per act step {per_step}, want {want_counts}")
     for name in summary:
         summary[name]["launches"] = launches[name]
-    # the kernels line counts the launches of the wgmma/TMA designs
+    # the kernels line counts the launches of the wgmma/TMA designs and of
+    # csrc/spatial_stats.cu
     summary["flash_attention"]["launches"] = launches["flash_attention_wgmma"]
     summary["conv3d_k3"]["launches"] = launches["conv3d_k3_wgmma"]
+    summary["spatial_stats_3d"]["launches"] = launches["spatial_stats_3d_cuda"]
 
     trace_off, times_off, launches_off = drive(server_off)
     emit("act", path="plain", steps=STEPS, p50_ms=statistics.median(times_off),
@@ -881,21 +1067,25 @@ def main():
         device_ms = sum(r[1] for r in rows)
         rows.sort(key=lambda r: -r[1])
         emit("profile", path=path, step_wall_ms=wall_ms, device_ms=device_ms,
+             stats_kernel_ms=sum(r[1] for r in rows if "stats_kernel" in r[0]),
              device_busy_share=device_ms / wall_ms,
              device_events=sum(r[2] for r in rows),
              top=[{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:15]],
              card=card)
 
     # ----------------------------------------------------------- 4. render
-    render_phase(torch, np, dev, card, out_on[3], vox[0, ..., -1], summary, record)
+    packed = render_phase(torch, np, dev, card, out_on[3], vox[0, ..., -1], summary, record)
 
-    # ------------------------------------------------------- 5. summary
+    # ------------------------------------------------------------ 5. grad
+    grad_phase(torch, dev, card, packed)
+
+    # ------------------------------------------------------- 6. summary
     info = {
         "flash_attention": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/flash_attention.cu",
                             "real_robot_nerf_actor_tpu/ops/attention_pallas.py:70"),
         "conv3d_k3": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/conv3d_k3.cu",
                       "real_robot_nerf_actor_tpu/ops/conv3d_pallas.py:46"),
-        "spatial_stats_3d": ("triton", "real_robot_nerf_actor_tpu_torch/ops/stats_cuda.py",
+        "spatial_stats_3d": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/spatial_stats.cu",
                              "real_robot_nerf_actor_tpu/ops/stats_pallas.py:59"),
         "corner_lerp": ("triton", "real_robot_nerf_actor_tpu_torch/ops/lerp_cuda.py",
                         "real_robot_nerf_actor_tpu/ops/lerp_pallas.py:59"),

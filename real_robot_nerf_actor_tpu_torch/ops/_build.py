@@ -42,6 +42,12 @@ _SIGNATURES = {
         "conv3d_k3_wgmma_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_void_p],
     },
+    "spatial_stats": {
+        # x, scratch, out, tickets; B, V, C, dtype, bulk, rows_per_slab, slabs,
+        # groups, fold_group; k, step; stream
+        "spatial_stats_3d_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    },
     "resnetfc_int8": {
         # zi, 10 weight/scale pointers, out, hidden; n, d_latent, n_aux,
         # d_hidden, n_blocks, combine_layer, k_in, k_lat, quantized, design;

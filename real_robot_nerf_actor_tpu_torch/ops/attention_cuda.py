@@ -14,6 +14,11 @@ with any strides whose last one is 1 (so `MHAttention` hands in its
 split-heads views without a copy); `out`, if given, is written in place in
 the caller's layout. Nq and Nk may be ragged; the kernels mask keys >= Nk
 and rows >= Nq themselves.
+
+No backward: as in the JAX package, which has no VJP for its kernel, a
+CUDA call under grad mode with an input that requires a gradient raises
+(`ops._grad.refuse_grad`); the knob-off path (`reference_attention`) is
+the one to train through.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Optional
 import torch
 
 from real_robot_nerf_actor_tpu_torch.ops import _build
+from real_robot_nerf_actor_tpu_torch.ops._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BQ, BKV = 128, 64          # query rows per block, keys per tile (bf16 kernel)
@@ -150,6 +156,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         res = flash_attention_plain(q, k, v, sm_scale)
         return res if out is None else out.copy_(res)
+    refuse_grad("flash_attention", "use_flash_attention=False", q, k, v)
+    return _launch(q, k, v, sm_scale, out)
+
+
+def _launch(q, k, v, sm_scale, out):
+    """Check the CUDA inputs, launch the kernel for them, count it."""
     _check(q, k, v, out)
     b, h, nq, d = q.shape
     nk = k.shape[2]

@@ -13,6 +13,13 @@ casts it to the input's dtype as the TPU path does
 (`wk = kernel.astype(x.dtype)`); the kernel takes it already in x's dtype,
 as given, so a caller casts it once, at load (`Conv3DBlock.cast_kernel_`),
 not on every call.
+
+Gradient: the CUDA branch is a `torch.autograd.Function` whose backward is
+the JAX package's custom VJP (`_conv3d_k3_bwd`, the VJP of the plain XLA
+conv): dx and dk from the conv's own input and weight gradients
+(`torch.nn.grad`, cuDNN on the card) in the kernel's dtype, db the fp32 sum
+of the output gradient over B, D, H and W. There is no backward kernel:
+the reference has none either.
 """
 from __future__ import annotations
 
@@ -85,13 +92,29 @@ def takes_wgmma(x: torch.Tensor, kernel: torch.Tensor) -> bool:
             and x.data_ptr() % 16 == 0 and kernel.data_ptr() % 16 == 0)
 
 
-def conv3d_k3(x: torch.Tensor, kernel: torch.Tensor,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (B, D, H, W, Cin), kernel (3, 3, 3, Cin, Cout) in x's dtype, bias
-    (Cout,) fp32 -> (B, D, H, W, Cout) in x's dtype."""
-    if x.device.type == "cpu":
-        return conv3d_k3_plain(x, kernel, bias)
-    _check(x, kernel, bias)
+def conv3d_k3_vjp(x: torch.Tensor, kernel: torch.Tensor, g: torch.Tensor,
+                  needs=(True, True, True)):
+    """(dx, dk, db) of the conv at (x, kernel) for the output gradient g, as
+    the JAX package's `_conv3d_k3_bwd` computes them: the plain conv's VJP.
+    dx (B, D, H, W, Cin) in x's dtype, dk (3, 3, 3, Cin, Cout) in the
+    kernel's, db (Cout,) fp32; each None where `needs` says so."""
+    g = g.to(x.dtype)
+    xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    wn = kernel.to(x.dtype).permute(4, 3, 0, 1, 2)
+    dx = dk = db = None
+    if needs[0]:
+        dx = torch.nn.grad.conv3d_input(xn.shape, wn, gn, padding=1).permute(0, 2, 3, 4, 1)
+    if needs[1]:
+        dk = torch.nn.grad.conv3d_weight(xn, wn.shape, gn, padding=1) \
+            .permute(2, 3, 4, 1, 0).to(kernel.dtype)
+    if needs[2]:
+        db = g.float().sum(dim=(0, 1, 2, 3))
+    return dx, dk, db
+
+
+def _launch(x: torch.Tensor, kernel: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs; the output."""
     b, d, h, w, cin = x.shape
     cout = kernel.shape[-1]
     lib = _build.load("conv3d_k3")
@@ -110,6 +133,32 @@ def conv3d_k3(x: torch.Tensor, kernel: torch.Tensor,
     conv3d_k3.launches += 1
     conv3d_k3.wgmma_launches += wgmma
     return out
+
+
+class Conv3dK3(torch.autograd.Function):
+    """The kernel's forward (`_launch`) with the plain conv's VJP as its
+    backward (`conv3d_k3_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        return _launch(x, kernel, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        return conv3d_k3_vjp(x, kernel, g, ctx.needs_input_grad)
+
+
+def conv3d_k3(x: torch.Tensor, kernel: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, D, H, W, Cin), kernel (3, 3, 3, Cin, Cout) in x's dtype, bias
+    (Cout,) fp32 -> (B, D, H, W, Cout) in x's dtype. Differentiable in all
+    three (see the module's note)."""
+    if x.device.type == "cpu":
+        return conv3d_k3_plain(x, kernel, bias)
+    _check(x, kernel, bias)
+    return Conv3dK3.apply(x, kernel, bias)
 
 
 conv3d_k3.launches = 0         # calls that launched a kernel (either design)

@@ -23,6 +23,11 @@ accumulator in registers.
 On a CUDA tensor the wrapper launches the Triton kernel; on a CPU tensor it
 runs `corner_lerp_plain`. `triton` is imported inside the launching
 function only.
+
+Gradient: the CUDA branch is a `torch.autograd.Function` whose backward is
+the JAX package's custom VJP (`lerp_pallas._bwd`) in plain PyTorch:
+d_rows[m, k*C + c] = w[k, m] * g[m, c] in the rows' dtype, and
+d_w[k, m] = sum_c rows[m, k*C + c] * g[m, c] with fp32 sums, in w's dtype.
 """
 from __future__ import annotations
 
@@ -81,12 +86,18 @@ def _check(rows, w):
         raise ValueError("corner_lerp: rows and w must be contiguous")
 
 
-def corner_lerp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """rows: (M, 8C); w: (8, M) fp32 weight-mask products. Returns (M, C)
-    in rows.dtype (fp32 accumulation)."""
-    if rows.device.type == "cpu":
-        return corner_lerp_plain(rows, w)
-    _check(rows, w)
+def corner_lerp_vjp(rows: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """(d_rows, d_w) of the lerp at (rows, w) for the output gradient g (M,
+    C): the JAX package's `_bwd`, fp32 products and sums."""
+    m, c8 = rows.shape
+    g32 = g.float()
+    d_rows = (w.float().T[:, :, None] * g32[:, None, :]).reshape(m, c8).to(rows.dtype)
+    d_w = torch.einsum("mkc,mc->km", rows.reshape(m, 8, c8 // 8).float(), g32).to(w.dtype)
+    return d_rows, d_w
+
+
+def _launch(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs; the output."""
     m, c8 = rows.shape
     c = c8 // 8
     out = torch.empty((m, c), dtype=rows.dtype, device=rows.device)
@@ -96,6 +107,30 @@ def corner_lerp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                         BLOCK_C=block_c, num_warps=4)
     corner_lerp.launches += 1
     return out
+
+
+class CornerLerp(torch.autograd.Function):
+    """The kernel's forward (`_launch`) with the JAX VJP as its backward
+    (`corner_lerp_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, rows, w):
+        ctx.save_for_backward(rows, w)
+        return _launch(rows, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, w = ctx.saved_tensors
+        return corner_lerp_vjp(rows, w, g)
+
+
+def corner_lerp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """rows: (M, 8C); w: (8, M) fp32 weight-mask products. Returns (M, C)
+    in rows.dtype (fp32 accumulation). Differentiable in both."""
+    if rows.device.type == "cpu":
+        return corner_lerp_plain(rows, w)
+    _check(rows, w)
+    return CornerLerp.apply(rows, w)
 
 
 corner_lerp.launches = 0

@@ -26,7 +26,9 @@ with torch's elementwise ops.
 
 On a CUDA tensor the wrapper launches the Triton kernel; on a CPU tensor it
 runs `ray_expand_plain`. `triton` is imported inside the launching
-function only.
+function only. No backward: the serving path is not differentiated in the
+JAX package either, so a CUDA call under grad mode with an input that
+requires a gradient raises (`ops._grad.refuse_grad`).
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from real_robot_nerf_actor_tpu_torch.ops._grad import refuse_grad
 
 BN = 256   # rays per program; callers pad R to a multiple of it
 TWO_PI = 2.0 * math.pi
@@ -205,7 +209,14 @@ def ray_expand(rays: torch.Tensor, z_samp: torch.Tensor, grid_dims: Sequence[int
     if rays.device.type == "cpu":
         return ray_expand_plain(rays, z_samp, grid_dims, coord_bounds, num_freqs,
                                 freq_factor)
+    refuse_grad("ray_expand", 'field.mlp_backend="xla"', rays, z_samp)
+    return _launch(rays, z_samp, grid_dims, coord_bounds, num_freqs, freq_factor)
+
+
+def _launch(rays, z_samp, grid_dims, coord_bounds, num_freqs, freq_factor):
+    """Check the CUDA inputs, launch the kernel for them, count it."""
     _check(rays, z_samp)
+    r, k = z_samp.shape
     d, h, w = (int(v) for v in grid_dims)
     lo, ext, fr = _consts(coord_bounds, num_freqs, freq_factor)
     dev = rays.device

@@ -30,6 +30,11 @@ slice, from the copy `ring_layout` makes at pack time), for the int8 calls
 at d_hidden 256 or 512 (the serving configs); "mma_sync", the first kernel,
 for every other call. Both wrappers count the wgmma launches in
 `wgmma_launches` beside `launches`.
+
+No backward, as in the JAX package, whose quantized field fails fast on
+one: a CUDA call under grad mode with an input that requires a gradient
+raises (`ops._grad.refuse_grad`). The bf16 field (`mlp_backend="xla"`) is
+the one to train.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from real_robot_nerf_actor_tpu_torch.ops import _build
+from real_robot_nerf_actor_tpu_torch.ops._grad import refuse_grad
 
 ActScales = Union[None, Sequence[float], torch.Tensor]
 
@@ -377,6 +383,13 @@ def fused_resnetfc_int8(zi: torch.Tensor, packed: dict, n_blocks: int = 5,
         _pick_design(design, quantized, packed["kernel"])
         return fused_resnetfc_int8_plain(zi, packed, n_blocks, combine_layer,
                                          quantized, act_scales)
+    refuse_grad("fused_resnetfc_int8", 'field.mlp_backend="xla"', zi)
+    return _launch(zi, packed, n_blocks, combine_layer, quantized, act_scales, design)
+
+
+def _launch(zi, packed, n_blocks, combine_layer, quantized, act_scales, design):
+    """Check the CUDA inputs of fused_resnetfc_int8, launch its kernel,
+    count it."""
     if not zi.is_cuda:
         raise ValueError(f"fused_resnetfc_int8: need a CUDA tensor, got {zi.device}")
     if zi.dtype != torch.bfloat16 or zi.dim() != 2 or zi.shape[1] != 128 \
@@ -425,6 +438,16 @@ def fused_gather_resnetfc_int8(vox_rows: torch.Tensor, flat: torch.Tensor,
         return fused_gather_resnetfc_int8_plain(vox_rows, flat, w8, aux, packed,
                                                 d_latent, num_freqs, n_blocks,
                                                 combine_layer, quantized, act_scales)
+    refuse_grad("fused_gather_resnetfc_int8", 'field.mlp_backend="xla"',
+                vox_rows, w8, aux)
+    return _launch_gather(vox_rows, flat, w8, aux, packed, d_latent, n_blocks,
+                          combine_layer, quantized, act_scales, design)
+
+
+def _launch_gather(vox_rows, flat, w8, aux, packed, d_latent, n_blocks, combine_layer,
+                   quantized, act_scales, design):
+    """Check the CUDA inputs of fused_gather_resnetfc_int8, launch its
+    kernel, count it."""
     dev = vox_rows.device
     if not all(t.is_cuda and t.device == dev for t in (vox_rows, flat, w8, aux)):
         raise ValueError("fused_gather_resnetfc_int8: all inputs must lie on one "

@@ -29,7 +29,7 @@ from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import (
 from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
     conv3d_k3, conv3d_k3_plain)
 from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import (
-    spatial_stats_3d, spatial_stats_3d_plain)
+    plan, spatial_stats_3d, spatial_stats_3d_plain, spatial_stats_3d_triton_prev)
 
 pytestmark = pytest.mark.cuda
 
@@ -169,16 +169,62 @@ def test_conv3d_k3(cuda, dtype, shape, cin, cout):
 @pytest.mark.parametrize("shape,dtype", [((1, 100, 100, 100, 64), torch.float32),
                                          ((1, 20, 20, 20, 128), torch.float32),
                                          ((1, 100, 100, 100, 64), torch.bfloat16),
-                                         ((2, 8, 8, 8, 6), torch.float32)])
+                                         ((2, 8, 8, 8, 6), torch.float32),
+                                         ((1, 12, 12, 12, 5), torch.bfloat16),
+                                         ((3, 16, 16, 16, 12), torch.bfloat16),
+                                         ((1, 10, 10, 10, 3000), torch.float32)])
 def test_spatial_stats_3d(cuda, shape, dtype):
+    """The act step's three volumes (bulk-copy ring), odd channel counts and
+    a batch of three (plain loads, bf16 rows of 24 bytes), more channels
+    than one block takes (plain loads in groups of 512)."""
     x = _randn(shape, 0, 0.3).to(cuda, dtype)
-    launches = spatial_stats_3d.launches
+    launches, cuda_launches = spatial_stats_3d.launches, spatial_stats_3d.cuda_launches
     got = spatial_stats_3d(x)
     torch.cuda.synchronize()
     assert spatial_stats_3d.launches == launches + 1
+    assert spatial_stats_3d.cuda_launches == cuda_launches + 1
+    assert spatial_stats_3d.last_plan == plan(shape, x.element_size(), x.data_ptr(),
+                                              torch.cuda.get_device_properties(cuda)
+                                              .multi_processor_count)
     want = spatial_stats_3d_plain(x)
     # error relative to each channel's denominator, which bounds the
     # numerators (|lin| <= 1)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert ((got - want).abs() / want[..., :1]).max().item() <= 1e-5
+    # the same bits on a second call: the fold runs in a fixed order
+    assert torch.equal(spatial_stats_3d(x), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_stats_3d_edge_slabs(cuda, dtype):
+    """At d0's shape: channel 0 of slab 1 lies 40 below the rest (its fold
+    factor underflows to 0), channel 1 of the last slab and channel 2 of
+    slab 0's first stage are -inf throughout; a result with no NaN within
+    the tolerance of the plain version."""
+    shape = (1, 100, 100, 100, 64)
+    x = _randn(shape, 6, 0.3).to(cuda, dtype)
+    pl = plan(shape, x.element_size(), x.data_ptr(),
+              torch.cuda.get_device_properties(cuda).multi_processor_count)
+    flat = x.view(1, -1, 64)
+    flat[:, pl.rows_per_slab:2 * pl.rows_per_slab, 0] -= 40.0
+    flat[:, (pl.slabs - 1) * pl.rows_per_slab:, 1] = float("-inf")
+    flat[:, :pl.stage_rows, 2] = float("-inf")
+    got = spatial_stats_3d(x)
+    want = spatial_stats_3d_plain(x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() / want[..., :1]).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_stats_3d_triton_prev(cuda, dtype):
+    """The first design, kept for same-run times, still computes the
+    function; it counts no launch of the wrapper."""
+    x = _randn((1, 20, 20, 20, 128), 7, 0.3).to(cuda, dtype)
+    launches = spatial_stats_3d.launches
+    got = spatial_stats_3d_triton_prev(x)
+    assert spatial_stats_3d.launches == launches
+    want = spatial_stats_3d_plain(x)
     assert ((got - want).abs() / want[..., :1]).max().item() <= 1e-5
 
 
@@ -205,7 +251,7 @@ def test_conv3d_k3_refuses_a_weight_in_another_dtype(cuda):
                                          ((1, 100, 100, 100, 64), torch.bfloat16)])
 def test_spatial_stats_3d_every_row_counts(cuda, shape, dtype):
     """Input spread equal to the temperature, so every row adds to every
-    sum, the 576 rows of the last partial slab of 100^3 included: dropping
+    sum, the rows of the kernel's last, shorter slab included: dropping
     that slab would miss the tolerance by far."""
     x = _randn(shape, 5, 0.01).to(cuda, dtype)
     got = spatial_stats_3d(x)
@@ -213,7 +259,8 @@ def test_spatial_stats_3d_every_row_counts(cuda, shape, dtype):
     den = want[..., :1]
     assert ((got - want).abs() / den).max().item() <= 1e-5
     n_rows = shape[1] ** 3
-    tail = n_rows % 2048 or 2048
+    pl = spatial_stats_3d.last_plan
+    tail = n_rows - (pl.slabs - 1) * pl.rows_per_slab      # the kernel's last slab
     cut = x.reshape(shape[0], n_rows, shape[4]).clone()
     cut[:, n_rows - tail:] = float("-inf")     # exp -> 0: those rows dropped
     dropped = spatial_stats_3d_plain(cut.reshape(shape))
@@ -251,6 +298,141 @@ def test_policy_kernel_path_matches_plain_path(cuda):
     for g, w in zip(got, want):
         scale = max(1.0, w.abs().max().item())
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+# ------------------------------------------------------------ gradients
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,cout", [((1, 13, 11, 9), 64, 24),
+                                            ((2, 7, 11, 6), 12, 10)])
+def test_conv3d_k3_gradients(cuda, monkeypatch, dtype, shape, cin, cout):
+    """The kernel's Function against the plain path on one output gradient:
+    bit for bit against its own backward code (conv3d_k3_vjp), and within
+    one rounding of the gradient against autograd of conv3d_k3_plain (fp32
+    1e-4, bf16 2^-7 of each gradient's scale)."""
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3_vjp
+    # the same weight gradient twice
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    x = _randn(shape + (cin,), 0).to(cuda, dtype).requires_grad_()
+    w = _randn((3, 3, 3, cin, cout), 1, 0.05).to(cuda, dtype).requires_grad_()
+    b = _randn((cout,), 2).to(cuda).requires_grad_()
+    g = _randn(shape + (cout,), 3).to(cuda, dtype)
+    launches = conv3d_k3.launches
+    conv3d_k3(x, w, b).backward(g)
+    assert conv3d_k3.launches == launches + 1
+    got = (x.grad, w.grad, b.grad)
+    with torch.no_grad():
+        same = conv3d_k3_vjp(x, w, g)
+    for a, c in zip(got, same):
+        assert torch.equal(a, c)
+    xp, wp, bp = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    conv3d_k3_plain(xp, wp, bp).backward(g)
+    for a, c in zip(got, (xp.grad, wp.grad, bp.grad)):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        scale = c.float().abs().max().item()
+        tol = (1e-4 if dtype == torch.float32 or c.dtype == torch.float32 else 2 ** -7) * scale
+        torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("m", [65536, 1000])
+def test_corner_lerp_gradients(cuda, m):
+    """The kernel's Function against autograd of corner_lerp_plain: d_rows
+    within one bf16 ulp of each value, d_w (fp32 sums over 64 channels in
+    another order) within 1e-5 of its scale."""
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
+    rows = _randn((m, 512), 0).to(cuda, torch.bfloat16).requires_grad_()
+    w = torch.rand((8, m), generator=torch.Generator().manual_seed(1)).to(cuda)
+    w.requires_grad_()
+    g = _randn((m, 64), 2).to(cuda, torch.bfloat16)
+    launches = corner_lerp.launches
+    corner_lerp(rows, w).backward(g)
+    assert corner_lerp.launches == launches + 1
+    rp, wp = rows.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    corner_lerp_plain(rp, wp).backward(g)
+    d, dp = rows.grad.float(), rp.grad.float()
+    assert ((d - dp).abs() <= 2 ** -7 * dp.abs() + 1e-30).all()
+    torch.testing.assert_close(w.grad, wp.grad, rtol=0, atol=1e-5 * wp.grad.abs().max().item())
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """flash_attention, spatial_stats_3d, ray_expand and the two int8 MLP
+    entry points refuse an input that requires a gradient under grad mode,
+    and run under no_grad."""
+    from real_robot_nerf_actor_tpu_torch.ops import resnetfc_cuda as rf
+    from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import ray_expand
+    q = _randn((1, 1, 128, 64), 0).to(cuda, torch.bfloat16).requires_grad_()
+    vol = _randn((1, 8, 8, 8, 16), 1).to(cuda).requires_grad_()
+    rays, z, exp = _serve_inputs(cuda, 256, 4, dims=(6, 7, 9))
+    z.requires_grad_()
+    sd = {k: v.to(cuda) for k, v in _random_mlp_state().items()}
+    packed = rf.pack_resnetfc_params(sd)
+    zi = rf.pack_mlp_input(_randn((64, 64), 2).to(cuda), torch.zeros((64, 3), device=cuda),
+                           torch.zeros((64, 3), device=cuda), 6, 1.5).requires_grad_()
+    rows_all = exp.reshape(-1, 512).requires_grad_()
+    flat = torch.zeros(64, dtype=torch.int32, device=cuda)
+    w8 = torch.full((8, 64), 0.125, device=cuda)
+    aux = torch.zeros((24, 64), dtype=torch.bfloat16, device=cuda)
+    calls = {
+        "flash_attention": lambda: flash_attention(q, q, q),
+        "spatial_stats_3d": lambda: spatial_stats_3d(vol),
+        "ray_expand": lambda: ray_expand(rays, z, (6, 7, 9), BOUNDS),
+        "fused_resnetfc_int8": lambda: rf.fused_resnetfc_int8(zi, packed),
+        "fused_gather_resnetfc_int8": lambda: rf.fused_gather_resnetfc_int8(
+            rows_all, flat, w8, aux, packed),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=name):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def _grad_policy(**knobs):
+    return PerceiverConfig(depth=1, voxel_size=20, num_latents=64, latent_dim=64,
+                           im_channels=16, latent_heads=2, final_dim=16,
+                           lang_emb_dim=32, lang_max_seq_len=8, input_encoder="unet",
+                           conv_backend="pallas", **knobs)
+
+
+def test_policy_backward_through_the_conv_kernel(cuda, monkeypatch):
+    """conv_backend="pallas" in training: backward() gives `final`'s
+    pallas_kernel and pallas_bias the plain path's gradients (the same net
+    with the plain conv); with use_flash_attention or stats_backend="pallas"
+    on, backward is refused."""
+    from real_robot_nerf_actor_tpu_torch.models import blocks
+    net = PerceiverIO.initialized(_grad_policy(), torch.Generator().manual_seed(0)).to(cuda)
+    vox = _randn((1, 20, 20, 20, 10), 3).to(cuda)
+    proprio = torch.tensor([[3.0, 4.0, 5.0, 30.0, 2.0, 40.0, 1.0]], device=cuda)
+    lang = _randn((1, 8, 32), 4).to(cuda)
+    weights = None
+
+    def grads():
+        nonlocal weights
+        net.zero_grad()
+        outs = [o.float() for o in net(vox, proprio, lang)]
+        if weights is None:
+            weights = [_randn(tuple(o.shape), 10 + i).to(cuda) for i, o in enumerate(outs)]
+        sum((o * r).sum() for o, r in zip(outs, weights)).backward()
+        return {k: p.grad.clone() for k, p in net.named_parameters() if p.grad is not None}
+
+    launches = conv3d_k3.launches
+    got = grads()
+    assert conv3d_k3.launches == launches + 1
+    monkeypatch.setattr(blocks, "conv3d_k3", conv3d_k3_plain)
+    want = grads()
+    assert set(got) == set(want)
+    for k in ("final.pallas_kernel", "final.pallas_bias"):
+        assert got[k].abs().max().item() > 0
+    for k in want:
+        scale = want[k].abs().max().item()
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-4 * max(scale, 1e-30))
+    monkeypatch.undo()
+    for knobs, name in (({"use_flash_attention": True}, "flash_attention"),
+                        ({"stats_backend": "pallas"}, "spatial_stats_3d")):
+        net = PerceiverIO.initialized(_grad_policy(**knobs),
+                                      torch.Generator().manual_seed(0)).to(cuda)
+        with pytest.raises(RuntimeError, match=name):
+            net(vox, proprio, lang)
 
 
 # ------------------------------------------------- serving renderer kernels
