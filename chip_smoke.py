@@ -18,9 +18,9 @@ Phases, each reported on its own line:
      kernel loads over x's size. These two also report the device time of
      the kernel and of the library call (torch.profiler), without the host's
      launch time that bounds a single timed call of a few tens of us. The
-     spatial_stats_3d lines time the first (Triton) design beside the
-     kernel (prev_ms, prev_device_ms), check that two calls give the same
-     bits, and that the tolerance sees the kernel's last slab dropped;
+     spatial_stats_3d lines add the device time with the L2 evicted before
+     each call, check that two calls give the same bits, and that the
+     tolerance sees the kernel's last slab dropped;
   3. act: PolicyServer with the configs/serve.yaml policy (UNet encoder,
      100^3 x 10 voxels, 220000 points, 2048 x 512 latents, depth 6, bf16,
      random weights from a seeded generator) and the three kernel knobs on,
@@ -42,13 +42,18 @@ Phases, each reported on its own line:
      calibrate_int8_act, plan_rays), then its four kernels against their
      plain versions on the frame's first tile (ray_expand, corner_lerp,
      fused_resnetfc_int8 and fused_gather_resnetfc_int8 under static and
-     dynamic scales). The MLP kernels run their wgmma design, which must
-     equal the first (mma.sync) design bit for bit; that design is timed
+     dynamic scales). ray_expand must equal its plain version bit for bit
+     (a planted flatT off by one must fail that check) and corner_lerp be
+     within one bf16 ulp of it (a dropped corner must fail); their lines add
+     the device time (torch.profiler) and the host time of one call without
+     a synchronise (host_us). The MLP kernels run their wgmma design, which
+     must equal the first (mma.sync) design bit for bit; that design is timed
      beside it (prev_ms). Then FRAME_WARMUP untimed and FRAMES timed frames
      with gather_fused_mlp false (serve.yaml as written) and true: p50 per
      frame, delivered and computed rays/s, active share, peak memory,
-     launches per frame (2 per tile for each kernel of the path, and every
-     MLP launch on the wgmma design). The frames of the two
+     launches per frame (2 per tile for each kernel of the path, every MLP
+     launch on the wgmma design, every ray_expand and corner_lerp launch on
+     its csrc/ kernel). The frames of the two
      settings must be equal, and the kernel frame must stay within RGB_TOL
      (largest gap) and PSNR_MIN of the plain field's (mlp_backend "xla")
      frame. Three planted glue faults (the fine pass dropped, the field's
@@ -168,6 +173,21 @@ def profiled_ms(torch, fn, reps, flush=None):
     return total / reps / 1e3 if total > 0 else None   # None: the profiler saw nothing
 
 
+def host_us(torch, fn, reps):
+    """Median host time of one call without a synchronise, in us: what the
+    host spends to check, allocate and enqueue it (the queue is drained
+    before each call, outside the timing)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -200,7 +220,8 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
     from real_robot_nerf_actor_tpu_torch.models import NerfFieldConfig
     from real_robot_nerf_actor_tpu_torch.ops import resnetfc_cuda as rf
     from real_robot_nerf_actor_tpu_torch.ops.grid_sample import expand_corners
-    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import (
+        corner_lerp, corner_lerp_plain, vector_path)
     from real_robot_nerf_actor_tpu_torch.ops.occupancy import sample_occupancy, tighten_rays
     from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import (
         ray_expand, ray_expand_plain)
@@ -268,29 +289,47 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
         k = z.shape[1]
         n = k * tile
         # ray_expand: bit-equal to the torch ops (round-to-nearest intrinsics)
-        got = ray_expand(tile_rays, z, dims, SERVE_FIELD["coord_bounds"])
+        def expand():
+            return ray_expand(tile_rays, z, dims, SERVE_FIELD["coord_bounds"])
+
+        cuda_launches = ray_expand.cuda_launches
+        got = expand()
         want = ray_expand_plain(tile_rays, z, dims, SERVE_FIELD["coord_bounds"])
         torch.cuda.synchronize()
+        if ray_expand.cuda_launches != cuda_launches + 1:
+            fail(f"ray_expand {pass_}: did not launch csrc/ray_expand.cu")
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+
+        def bit_equal(out):
+            return all(torch.equal(a, b) for a, b in zip(out, want))
+
+        if not bit_equal(got):
             fail(f"ray_expand {pass_}: differs from its plain version ({err})")
+        # planted: flatT off by one row must fail that check
+        if bit_equal((got[0], got[1], got[2] + 1)):
+            fail(f"ray_expand {pass_}: the check does not see flatT off by one")
         aux, w8, flat = got[0].reshape(-1, n), got[1].reshape(8, n), got[2].reshape(n)
-        ms = median_ms(torch, lambda: ray_expand(tile_rays, z, dims,
-                                                 SERVE_FIELD["coord_bounds"]), 20)
+        ms = median_ms(torch, expand, 20)
+        dev_ms = profiled_ms(torch, expand, 20)
+        h_us = host_us(torch, expand, 50)
         plain_ms = median_ms(torch, lambda: ray_expand_plain(
             tile_rays, z, dims, SERVE_FIELD["coord_bounds"]), 5)
         nbytes = tile * 8 * 4 + n * 4 + n * (aux.shape[0] * 2 + 8 * 4 + 4)
         b_ms, b_by = bound(120.0 * n, nbytes, "float32")
-        emit("kernel", name="ray_expand", shape=[tile, k], dtype="float32",
-             calls_per_frame=n_tiles, max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
-             library_ms=None, bound_ms=b_ms, bound_by=b_by, card=card)
+        emit("kernel", name="ray_expand", route="cuda", shape=[tile, k], dtype="float32",
+             calls_per_frame=n_tiles, max_abs_err=err, tol=0.0, flat_off_by_one_fails=True,
+             ms=ms, device_ms=dev_ms, host_us=h_us, plain_ms=plain_ms, library_ms=None,
+             bound_ms=b_ms, bound_by=b_by, card=card)
         record("ray_expand", n_tiles, err, ms, plain_ms, b_ms, b_by, None)
 
         # corner_lerp on the gathered rows: one bf16 ulp (<= 2^-7 of each value)
         rows = rows_all[flat.long()]
+        cuda_launches = corner_lerp.cuda_launches
         got = corner_lerp(rows, w8)
         want = corner_lerp_plain(rows, w8).float()
         torch.cuda.synchronize()
+        if corner_lerp.cuda_launches != cuda_launches + 1:
+            fail(f"corner_lerp {pass_}: did not launch csrc/corner_lerp.cu")
         err = (got.float() - want).abs().max().item()
         if not ((got.float() - want).abs() <= 2 ** -7 * want.abs() + 1e-6).all():
             fail(f"corner_lerp {pass_}: more than one bf16 ulp from its plain version")
@@ -298,13 +337,16 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
         if not ((no_last.float() - want).abs() > 2 ** -7 * want.abs() + 1e-6).any():
             fail(f"corner_lerp {pass_}: the check does not see a dropped corner")
         ms = median_ms(torch, lambda: corner_lerp(rows, w8), 20)
+        dev_ms = profiled_ms(torch, lambda: corner_lerp(rows, w8), 20)
+        h_us = host_us(torch, lambda: corner_lerp(rows, w8), 50)
         plain_ms = median_ms(torch, lambda: corner_lerp_plain(rows, w8), 5)
         rows3, w_lib = rows.view(n, 8, -1), w8.T.unsqueeze(1).to(torch.bfloat16).contiguous()
         lib_ms = median_ms(torch, lambda: torch.bmm(w_lib, rows3), 20)
         nbytes = rows.numel() * 2 + w8.numel() * 4 + got.numel() * 2
         b_ms, b_by = bound(16.0 * got.numel(), nbytes, "float32")
-        emit("kernel", name="corner_lerp", shape=list(rows.shape), dtype="bfloat16",
-             calls_per_frame=n_tiles, max_abs_err=err, tol="2^-7 of each value", ms=ms,
+        emit("kernel", name="corner_lerp", route="cuda", shape=list(rows.shape),
+             dtype="bfloat16", vector_path=vector_path(rows), calls_per_frame=n_tiles,
+             max_abs_err=err, tol="2^-7 of each value", ms=ms, device_ms=dev_ms, host_us=h_us,
              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, card=card)
         record("corner_lerp", n_tiles, err, ms, plain_ms, b_ms, b_by, lib_ms)
 
@@ -406,7 +448,8 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
 
     # ---- frames: serve.yaml as written, then gather_fused_mlp = true
     mlp_counters = (rf.fused_resnetfc_int8, rf.fused_gather_resnetfc_int8)
-    counters = (ray_expand, corner_lerp) + mlp_counters
+    cuda_counters = (ray_expand, corner_lerp)
+    counters = cuda_counters + mlp_counters
 
     def frames(rend, seed):
         """FRAME_WARMUP untimed, FRAMES timed frames; the last frame's output,
@@ -419,6 +462,8 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             c.launches = 0
         for c in mlp_counters:
             c.wgmma_launches = 0
+        for c in cuda_counters:
+            c.cuda_launches = 0
         times = []
         for i in range(FRAMES):
             t = time.perf_counter()
@@ -428,6 +473,7 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             times.append((time.perf_counter() - t) * 1e3)
         launches = {c.__name__: c.launches for c in counters}
         launches.update({f"{c.__name__}_wgmma": c.wgmma_launches for c in mlp_counters})
+        launches.update({f"{c.__name__}_cuda": c.cuda_launches for c in cuda_counters})
         return out, times, launches, torch.cuda.max_memory_allocated() / 2 ** 30
 
     r_gf = make(gather_fused_mlp=True)
@@ -447,15 +493,16 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
              computed_rays_per_s=plan.n_active / p50 * 1e3,
              active_share=plan.n_active / plan.n_total, launches=launches,
              launches_per_frame=per_frame, peak_mem_gb=peak, card=card)
-        # every MLP launch of the path on the wgmma design
-        want = {k: (2 * n_tiles if k.removesuffix("_wgmma") in on_path else 0)
-                for k in per_frame}
+        # every launch of the path on its CUDA kernel: the MLP's on the wgmma
+        # design, ray_expand's and corner_lerp's on csrc/
+        want = {k: (2 * n_tiles if k.removesuffix("_wgmma").removesuffix("_cuda") in on_path
+                    else 0) for k in per_frame}
         if per_frame != want:
             fail(f"render {label}: launches per frame {per_frame}, want {want}")
         for k in on_path:
             if k != "ray_expand" or label == "unfused":
-                summary[k]["launches"] = launches[k + "_wgmma" if k.startswith("fused")
-                                                  else k]
+                summary[k]["launches"] = launches[k + ("_wgmma" if k.startswith("fused")
+                                                       else "_cuda")]
         for name, x in zip(("rgb", "embed", "depth"), out):
             if not torch.isfinite(x).all():
                 fail(f"render {label}: non-finite {name}")
@@ -713,7 +760,7 @@ def main():
     from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
         BRICK, conv3d_k3, conv3d_k3_plain, halo_bytes)
     from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import (
-        spatial_stats_3d, spatial_stats_3d_plain, spatial_stats_3d_triton_prev)
+        spatial_stats_3d, spatial_stats_3d_plain)
     from real_robot_nerf_actor_tpu_torch.train.serve import (
         PolicyServer, ServeConfig, run_deployment)
 
@@ -858,7 +905,7 @@ def main():
     # and 0.01 (every row counts, the kernel's last, shorter slab included).
     # Error relative to each channel's denominator, which bounds
     # |numerators| (|lin| <= 1): a numerator near zero has no relative error
-    # of its own. The first (Triton) design is timed beside it (prev_ms).
+    # of its own.
     l2_evict = torch.zeros(2 ** 27, dtype=torch.float32, device=dev)   # 512 MB
 
     def flush():   # a read, so that the L2 is left holding clean lines
@@ -867,20 +914,18 @@ def main():
     for v, c, dtype in [(100, 64, torch.float32), (20, 128, torch.float32),
                         (100, 64, torch.bfloat16)]:
         dname = str(dtype).split(".")[1]
-        errs, errs_of_den, prev_errs = {}, {}, {}
+        errs, errs_of_den = {}, {}
         for scale in (0.3, 0.01):
             feat = randn(1, v, v, v, c, dtype=dtype, scale=scale)
             cuda_launches = spatial_stats_3d.cuda_launches
             got = spatial_stats_3d(feat)
             want = spatial_stats_3d_plain(feat)
-            prev = spatial_stats_3d_triton_prev(feat)
             torch.cuda.synchronize()
             if spatial_stats_3d.cuda_launches != cuda_launches + 1:
                 fail(f"spatial_stats_3d {v}^3x{c}: did not launch csrc/spatial_stats.cu")
             den = want[..., :1]
             errs[scale] = (got - want).abs().max().item()
             errs_of_den[scale] = ((got - want).abs() / den).max().item()
-            prev_errs[scale] = ((prev - want).abs() / den).max().item()
             if not torch.equal(spatial_stats_3d(feat), got):
                 fail(f"spatial_stats_3d {v}^3x{c}: two calls differ (the fold's order)")
         pl = spatial_stats_3d.last_plan
@@ -893,16 +938,12 @@ def main():
                     / den).max().item()
         del cut
         ms = median_ms(torch, lambda: spatial_stats_3d(feat), 20)
-        prev_ms = median_ms(torch, lambda: spatial_stats_3d_triton_prev(feat), 20)
         plain_ms = median_ms(torch, lambda: spatial_stats_3d_plain(feat), 5)
         dev_ms = profiled_ms(torch, lambda: spatial_stats_3d(feat), 20)
-        prev_dev_ms = profiled_ms(torch, lambda: spatial_stats_3d_triton_prev(feat), 20)
         # the same with the L2 evicted before each call (the volume is
         # written by the layer before it on the act step; these calls
         # would otherwise find part of it in L2)
         cold_ms = profiled_ms(torch, lambda: spatial_stats_3d(feat), 20, flush)
-        prev_cold_ms = profiled_ms(torch, lambda: spatial_stats_3d_triton_prev(feat), 20,
-                                   flush)
         # ~10 fp32 operations an element (sub, mul, exp, 4 adds, 3 muls)
         b_ms, b_by = bound(10.0 * feat.numel(), feat.numel() * feat.element_size()
                            + got.numel() * 4, "float32")
@@ -911,10 +952,8 @@ def main():
              rows_per_slab=pl.rows_per_slab, stage_rows=pl.stage_rows,
              calls_per_step=1, input_scales=list(errs), max_abs_err=max(errs.values()),
              max_err_of_den=list(errs_of_den.values()), tol_of_den=STATS_TOL,
-             prev_err_of_den=list(prev_errs.values()), tail_dropped_err_of_den=tail_err,
-             ms=ms, prev_ms=prev_ms, plain_ms=plain_ms, device_ms=dev_ms,
-             prev_device_ms=prev_dev_ms, cold_l2_device_ms=cold_ms,
-             prev_cold_l2_device_ms=prev_cold_ms, library_ms=None, bound_ms=b_ms,
+             tail_dropped_err_of_den=tail_err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+             cold_l2_device_ms=cold_ms, library_ms=None, bound_ms=b_ms,
              bound_by=b_by, card=card)
         if not pl.bulk:
             fail(f"spatial_stats_3d {v}^3x{c}: the act step's volume missed the bulk ring")
@@ -1087,9 +1126,9 @@ def main():
                       "real_robot_nerf_actor_tpu/ops/conv3d_pallas.py:46"),
         "spatial_stats_3d": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/spatial_stats.cu",
                              "real_robot_nerf_actor_tpu/ops/stats_pallas.py:59"),
-        "corner_lerp": ("triton", "real_robot_nerf_actor_tpu_torch/ops/lerp_cuda.py",
+        "corner_lerp": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/corner_lerp.cu",
                         "real_robot_nerf_actor_tpu/ops/lerp_pallas.py:59"),
-        "ray_expand": ("triton", "real_robot_nerf_actor_tpu_torch/ops/ray_expand_cuda.py",
+        "ray_expand": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/ray_expand.cu",
                        "real_robot_nerf_actor_tpu/ops/ray_expand_pallas.py:98"),
         "fused_resnetfc_int8": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/resnetfc_int8.cu",
                                 "real_robot_nerf_actor_tpu/ops/resnetfc_pallas.py:230"),

@@ -1,4 +1,4 @@
-"""Trilinear corner lerp over corner-expanded gather rows (Triton).
+"""Trilinear corner lerp over corner-expanded gather rows (CUDA C++).
 
 Counterpart of the JAX package's `ops/lerp_pallas.py`: it replaces
 `corner_lerp` (the Pallas kernel `_lerp_kernel`). For rows (M, 8C) of a
@@ -16,13 +16,16 @@ renderer gathers them outside its kernel.
 
 What bounds it on this card: 16 bytes of bf16 rows and 32 bytes of weights
 read and 2 bytes written per output element against 15 flops: memory
-(3.35 TB/s on H100 SXM). Design: one program per 64-row block, the eight
-64-wide corner slabs loaded as coalesced 128-byte row segments, the
-accumulator in registers.
+(3.35 TB/s on H100 SXM). Design (`csrc/corner_lerp.cu`): one 16-byte chunk
+of an output row a thread (8 bf16 or 4 fp32 channels), eight 16-byte loads
+of the corners, the sums in fp32 registers, one 16-byte store; rows whose
+channels are not whole 16-byte chunks, or a base that is not 16-byte
+aligned, take a scalar path (`vector_path` decides). The host path launches
+straight from the wrapper where no gradient is wanted.
 
-On a CUDA tensor the wrapper launches the Triton kernel; on a CPU tensor it
-runs `corner_lerp_plain`. `triton` is imported inside the launching
-function only.
+On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
+`corner_lerp_plain`. `corner_lerp.launches` counts calls that launched,
+`cuda_launches` launches of csrc/corner_lerp.cu.
 
 Gradient: the CUDA branch is a `torch.autograd.Function` whose backward is
 the JAX package's custom VJP (`lerp_pallas._bwd`) in plain PyTorch:
@@ -31,11 +34,11 @@ d_w[k, m] = sum_c rows[m, k*C + c] * g[m, c] with fp32 sums, in w's dtype.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-_BLOCK_M = 64
+from real_robot_nerf_actor_tpu_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def corner_lerp_plain(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -44,33 +47,6 @@ def corner_lerp_plain(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, c8 = rows.shape
     r = rows.reshape(m, 8, c8 // 8).float()
     return torch.einsum("mkc,km->mc", r, w.float()).to(rows.dtype)
-
-
-@functools.cache
-def _kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def lerp_kernel(rows_ptr, w_ptr, out_ptr, M, C,
-                    BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
-        m = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
-        c = tl.arange(0, BLOCK_C)
-        mmask = m < M
-        mask = mmask[:, None] & (c < C)[None, :]
-        m64 = m.to(tl.int64)
-        base = rows_ptr + m64[:, None] * (8 * C) + c[None, :]
-        w0 = tl.load(w_ptr + m, mask=mmask, other=0.0)
-        r0 = tl.load(base, mask=mask, other=0.0).to(tl.float32)
-        acc = r0 * w0[:, None]
-        for k in tl.static_range(1, 8):
-            wk = tl.load(w_ptr + k * M + m, mask=mmask, other=0.0)
-            rk = tl.load(base + k * C, mask=mask, other=0.0).to(tl.float32)
-            acc = tl.fma(rk, wk[:, None], acc)
-        tl.store(out_ptr + m64[:, None] * C + c[None, :],
-                 acc.to(out_ptr.dtype.element_ty), mask=mask)
-
-    return lerp_kernel
 
 
 def _check(rows, w):
@@ -96,16 +72,26 @@ def corner_lerp_vjp(rows: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     return d_rows, d_w
 
 
+def vector_path(rows: torch.Tensor) -> bool:
+    """Whether the kernel takes its 16-byte path for these rows: the
+    channels of a corner are whole 16-byte chunks and the base is 16-byte
+    aligned (the output, a fresh allocation, always is)."""
+    c = rows.shape[1] // 8
+    return (c * rows.element_size()) % 16 == 0 and rows.data_ptr() % 16 == 0
+
+
 def _launch(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel on checked CUDA inputs; the output."""
     m, c8 = rows.shape
     c = c8 // 8
     out = torch.empty((m, c), dtype=rows.dtype, device=rows.device)
-    block_c = max(16, 1 << (c - 1).bit_length())
-    with torch.cuda.device(rows.device):
-        _kernel()[(-(-m // _BLOCK_M),)](rows, w, out, m, c, BLOCK_M=_BLOCK_M,
-                                        BLOCK_C=block_c, num_warps=4)
+    lib = _build.load("corner_lerp")
+    code = _build.on_device(rows.device, lambda stream: lib.corner_lerp_fwd(
+        rows.data_ptr(), w.data_ptr(), out.data_ptr(), m, c, _DTYPES[rows.dtype],
+        int(vector_path(rows)), stream))
+    _build.check(lib, code, "corner_lerp")
     corner_lerp.launches += 1
+    corner_lerp.cuda_launches += 1
     return out
 
 
@@ -130,7 +116,10 @@ def corner_lerp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return corner_lerp_plain(rows, w)
     _check(rows, w)
-    return CornerLerp.apply(rows, w)
+    if torch.is_grad_enabled() and (rows.requires_grad or w.requires_grad):
+        return CornerLerp.apply(rows, w)
+    return _launch(rows, w)          # nothing to differentiate: no Function
 
 
-corner_lerp.launches = 0
+corner_lerp.launches = 0        # calls that launched a kernel
+corner_lerp.cuda_launches = 0   # of those, launches of csrc/corner_lerp.cu

@@ -1,4 +1,4 @@
-"""Ray -> per-sample field expansion for the int8 serving renderer (Triton).
+"""Ray -> per-sample field expansion for the int8 serving renderer (CUDA C++).
 
 Counterpart of the JAX package's `ops/ray_expand_pallas.py`: it replaces
 `ray_expand` (the Pallas kernel `_kernel`). For rays (R, 8) [o, d, near,
@@ -17,18 +17,25 @@ the bf16 cast. The arithmetic is ops.grid_sample.grid_sample_3d_fused's
 and ops.resnetfc_cuda.pack_mlp_input's.
 
 What bounds it on this card: 32 bytes of rays per ray and 4 bytes of z in,
-2*(6+3F) + 32 + 4 = 84 bytes out per sample against ~100 flops: memory
-(3.35 TB/s on H100 SXM). Design: one program per (256-ray block, sample
-k), every output a contiguous 256-wide row segment. Products and quotients
-use round-to-nearest intrinsics (no fused multiply-add, no approximate
-division), so the kernel computes exactly what `ray_expand_plain` computes
-with torch's elementwise ops.
+2*(6+3F) + 32 + 4 = 84 bytes out per sample against ~120 flops: memory
+(3.35 TB/s on H100 SXM), and at the renderer's 65536 samples a call the
+launch. Design (`csrc/ray_expand.cu`): a block of 128 threads takes 32
+rays x 8 samples, reads its rays and z rows once into shared memory, and
+gives each thread a pair of neighbouring rays at one sample, so that every
+store of a warp fills whole 64-byte row segments. Every product, quotient,
+sum and difference is a separate round-to-nearest intrinsic, so the kernel
+computes exactly what `ray_expand_plain` computes with torch's elementwise
+ops. The host path is short: the constants are computed once per
+(grid_dims, coord_bounds, num_freqs, freq_factor), each output is one
+`torch.empty`, and the launch enters no device context where the tensors'
+device is current.
 
-On a CUDA tensor the wrapper launches the Triton kernel; on a CPU tensor it
-runs `ray_expand_plain`. `triton` is imported inside the launching
-function only. No backward: the serving path is not differentiated in the
-JAX package either, so a CUDA call under grad mode with an input that
-requires a gradient raises (`ops._grad.refuse_grad`).
+On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
+`ray_expand_plain`. `ray_expand.launches` counts calls that launched,
+`cuda_launches` launches of csrc/ray_expand.cu. No backward: the serving
+path is not differentiated in the JAX package either, so a CUDA call under
+grad mode with an input that requires a gradient raises
+(`ops._grad.refuse_grad`).
 """
 from __future__ import annotations
 
@@ -39,9 +46,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from real_robot_nerf_actor_tpu_torch.ops import _build
 from real_robot_nerf_actor_tpu_torch.ops._grad import refuse_grad
 
-BN = 256   # rays per program; callers pad R to a multiple of it
+BN = 256   # callers pad R to a multiple of it (the JAX kernel's block)
 TWO_PI = 2.0 * math.pi
 
 
@@ -98,91 +106,6 @@ def ray_expand_plain(rays: torch.Tensor, z_samp: torch.Tensor,
             flat.to(torch.int32))
 
 
-def _libdevice():
-    try:
-        import triton.language.extra.libdevice as ld
-    except ImportError:
-        import triton.language.extra.cuda.libdevice as ld
-    return ld
-
-
-@functools.cache
-def _kernel():
-    import triton
-    import triton.language as tl
-    ld = _libdevice()
-
-    @triton.jit
-    def expand_kernel(rays_ptr, z_ptr, aux_ptr, w8_ptr, flat_ptr, R, K,
-                      D, H, W, lo0, lo1, lo2, ext0, ext1, ext2, freq_factor,
-                      two_pi, NUM_FREQS: tl.constexpr, BLOCK: tl.constexpr):
-        r = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        k = tl.program_id(1)
-        mask = r < R
-        zz = tl.load(z_ptr + r * K + k, mask=mask, other=0.0)
-        out = k * R + r                       # offset within one (K, R) plane
-        plane = K * R
-        # canon and the three per-axis coordinates, each axis on its own
-        ox = tl.load(rays_ptr + r * 8 + 0, mask=mask, other=0.0)
-        oy = tl.load(rays_ptr + r * 8 + 1, mask=mask, other=0.0)
-        oz = tl.load(rays_ptr + r * 8 + 2, mask=mask, other=0.0)
-        dx_ = tl.load(rays_ptr + r * 8 + 3, mask=mask, other=0.0)
-        dy_ = tl.load(rays_ptr + r * 8 + 4, mask=mask, other=0.0)
-        dz_ = tl.load(rays_ptr + r * 8 + 5, mask=mask, other=0.0)
-        c0 = ld.div_rn((ox + ld.mul_rn(zz, dx_)) - lo0, ext0)
-        c1 = ld.div_rn((oy + ld.mul_rn(zz, dy_)) - lo1, ext1)
-        c2 = ld.div_rn((oz + ld.mul_rn(zz, dz_)) - lo2, ext2)
-        gx = ld.mul_rn(c0, (W - 1).to(tl.float32))
-        gy = ld.mul_rn(c1, (H - 1).to(tl.float32))
-        gz = ld.mul_rn(c2, (D - 1).to(tl.float32))
-        x0 = tl.floor(gx)
-        y0 = tl.floor(gy)
-        z0 = tl.floor(gz)
-        tx = gx - x0
-        ty = gy - y0
-        tz = gz - z0
-        x0i = x0.to(tl.int32)
-        y0i = y0.to(tl.int32)
-        z0i = z0.to(tl.int32)
-        for c in tl.static_range(8):
-            ddz = c >> 2
-            ddy = (c >> 1) & 1
-            ddx = c & 1
-            zi = z0i + ddz
-            yi = y0i + ddy
-            xi = x0i + ddx
-            inb = (zi >= 0) & (zi < D) & (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
-            wz = tz if ddz == 1 else 1.0 - tz
-            wy = ty if ddy == 1 else 1.0 - ty
-            wx = tx if ddx == 1 else 1.0 - tx
-            wk = ld.mul_rn(ld.mul_rn(ld.mul_rn(wz, wy), wx), inb.to(tl.float32))
-            tl.store(w8_ptr + c * plane + out, wk, mask=mask)
-        xc = tl.minimum(tl.maximum(x0i, -1), W - 1) + 1
-        yc = tl.minimum(tl.maximum(y0i, -1), H - 1) + 1
-        zc = tl.minimum(tl.maximum(z0i, -1), D - 1) + 1
-        tl.store(flat_ptr + out, (zc * (H + 1) + yc) * (W + 1) + xc, mask=mask)
-        tl.store(aux_ptr + 0 * plane + out, c0.to(tl.bfloat16), mask=mask)
-        tl.store(aux_ptr + 1 * plane + out, c1.to(tl.bfloat16), mask=mask)
-        tl.store(aux_ptr + 2 * plane + out, c2.to(tl.bfloat16), mask=mask)
-        tl.store(aux_ptr + 3 * plane + out, dx_.to(tl.bfloat16), mask=mask)
-        tl.store(aux_ptr + 4 * plane + out, dy_.to(tl.bfloat16), mask=mask)
-        tl.store(aux_ptr + 5 * plane + out, dz_.to(tl.bfloat16), mask=mask)
-        fr = freq_factor
-        for f in tl.static_range(NUM_FREQS):
-            t0 = ld.mul_rn(c0, fr)
-            t1 = ld.mul_rn(c1, fr)
-            t2 = ld.mul_rn(c2, fr)
-            t0 = t0 - ld.mul_rn(two_pi, ld.rint(ld.div_rn(t0, two_pi)))
-            t1 = t1 - ld.mul_rn(two_pi, ld.rint(ld.div_rn(t1, two_pi)))
-            t2 = t2 - ld.mul_rn(two_pi, ld.rint(ld.div_rn(t2, two_pi)))
-            tl.store(aux_ptr + (6 + 3 * f) * plane + out, t0.to(tl.bfloat16), mask=mask)
-            tl.store(aux_ptr + (7 + 3 * f) * plane + out, t1.to(tl.bfloat16), mask=mask)
-            tl.store(aux_ptr + (8 + 3 * f) * plane + out, t2.to(tl.bfloat16), mask=mask)
-            fr = fr * 2.0
-
-    return expand_kernel
-
-
 def _check(rays, z_samp):
     if not (rays.is_cuda and z_samp.is_cuda):
         raise ValueError("ray_expand: rays and z must lie on a CUDA device "
@@ -213,24 +136,39 @@ def ray_expand(rays: torch.Tensor, z_samp: torch.Tensor, grid_dims: Sequence[int
     return _launch(rays, z_samp, grid_dims, coord_bounds, num_freqs, freq_factor)
 
 
+@functools.lru_cache(maxsize=64)
+def launch_consts(grid_dims: Tuple[int, int, int], coord_bounds: Tuple[float, ...],
+                  num_freqs: int, freq_factor: float) -> Tuple[tuple, tuple]:
+    """The kernel's scalar arguments after the ray count and the sample
+    count: ints (D, H, W, num_freqs) and fp32 floats (lo[3], ext[3],
+    freq_factor, 2 pi), rounded as `_consts` rounds them (doubling the
+    frequency in the kernel is exact)."""
+    lo, ext, _ = _consts(coord_bounds, num_freqs, freq_factor)
+    ints = tuple(int(v) for v in grid_dims) + (int(num_freqs),)
+    floats = tuple(float(v) for v in (*lo, *ext, np.float32(freq_factor),
+                                      np.float32(TWO_PI)))
+    return ints, floats
+
+
 def _launch(rays, z_samp, grid_dims, coord_bounds, num_freqs, freq_factor):
     """Check the CUDA inputs, launch the kernel for them, count it."""
     _check(rays, z_samp)
     r, k = z_samp.shape
-    d, h, w = (int(v) for v in grid_dims)
-    lo, ext, fr = _consts(coord_bounds, num_freqs, freq_factor)
+    ints, floats = launch_consts(tuple(grid_dims), tuple(coord_bounds), num_freqs,
+                                 freq_factor)
     dev = rays.device
     aux = torch.empty((6 + 3 * num_freqs, k, r), dtype=torch.bfloat16, device=dev)
     w8 = torch.empty((8, k, r), dtype=torch.float32, device=dev)
     flat = torch.empty((k, r), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _kernel()[(r // BN, k)](
-            rays, z_samp, aux, w8, flat, r, k, d, h, w,
-            float(lo[0]), float(lo[1]), float(lo[2]),
-            float(ext[0]), float(ext[1]), float(ext[2]), float(fr[0]),
-            float(np.float32(TWO_PI)), NUM_FREQS=num_freqs, BLOCK=BN, num_warps=4)
+    lib = _build.load("ray_expand")
+    code = _build.on_device(dev, lambda stream: lib.ray_expand_fwd(
+        rays.data_ptr(), z_samp.data_ptr(), aux.data_ptr(), w8.data_ptr(), flat.data_ptr(),
+        r, k, *ints, *floats, stream))
+    _build.check(lib, code, "ray_expand")
     ray_expand.launches += 1
+    ray_expand.cuda_launches += 1
     return aux, w8, flat
 
 
-ray_expand.launches = 0
+ray_expand.launches = 0        # calls that launched a kernel
+ray_expand.cuda_launches = 0   # of those, launches of csrc/ray_expand.cu

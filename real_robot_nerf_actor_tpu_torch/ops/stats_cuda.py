@@ -23,10 +23,6 @@ bytes (or C > 2048, or an unaligned base) take plain loads in the same
 kernel. `spatial_stats_3d.launches` counts calls that launched,
 `cuda_launches` those of this kernel.
 
-`spatial_stats_3d_triton_prev` keeps the first design (a `torch.amax` pass,
-a Triton kernel of 64 x 64 tiles, a torch fold of its partials) for
-same-run comparisons only; nothing on the main path calls it.
-
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 `spatial_stats_3d_plain`, the same function in plain PyTorch. No backward:
 the JAX package has no VJP for its kernel, so a CUDA call under grad mode
@@ -51,10 +47,6 @@ FOLD_GROUP = 16            # slabs whose partials the last of them folds
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 _SMS_BY_DEVICE = {}
 _TICKETS = {}
-# the first (Triton) design, kept for same-run comparisons
-_BLOCK_R = 64           # rows per tile
-_BLOCK_C = 64           # channels per program
-_ROWS_PER_PROG = 2048   # rows per slab (a multiple of _BLOCK_R)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,55 +113,6 @@ def spatial_stats_3d_plain(feature: torch.Tensor,
     return torch.stack([s0, sy, sz, sx], dim=-1)
 
 
-@functools.cache
-def _triton_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, mx_ptr, out_ptr, n_rows, C, V, n_slabs,
-                     rows_per_prog, inv_temp, step,
-                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        b = pid // n_slabs
-        slab = pid % n_slabs
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mx = tl.load(mx_ptr + b * C + cols, mask=cmask, other=0.0)
-        s0 = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sy = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sz = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sx = tl.zeros([BLOCK_C], dtype=tl.float32)
-        row0 = slab * rows_per_prog
-        row_end = tl.minimum(row0 + rows_per_prog, n_rows)
-        base = x_ptr + b.to(tl.int64) * n_rows * C
-        for r0 in range(row0, row_end, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            rmask = rows < row_end
-            mask = rmask[:, None] & cmask[None, :]
-            x = tl.load(base + rows.to(tl.int64)[:, None] * C + cols[None, :],
-                        mask=mask, other=0.0).to(tl.float32)
-            e = tl.exp((x - mx[None, :]) * inv_temp)
-            e = tl.where(mask, e, 0.0)
-            zi = rows // (V * V)
-            yi = (rows // V) % V
-            xi = rows % V
-            ly = yi.to(tl.float32) * step - 1.0
-            lz = zi.to(tl.float32) * step - 1.0
-            lx = xi.to(tl.float32) * step - 1.0
-            s0 += tl.sum(e, axis=0)
-            sy += tl.sum(e * ly[:, None], axis=0)
-            sz += tl.sum(e * lz[:, None], axis=0)
-            sx += tl.sum(e * lx[:, None], axis=0)
-        out = out_ptr + pid * 4 * C + cols
-        tl.store(out, s0, mask=cmask)
-        tl.store(out + C, sy, mask=cmask)
-        tl.store(out + 2 * C, sz, mask=cmask)
-        tl.store(out + 3 * C, sx, mask=cmask)
-
-    return stats_kernel
-
-
 def _check(feature):
     if not feature.is_cuda:
         raise ValueError(f"spatial_stats_3d: need a CUDA tensor, got {feature.device}")
@@ -181,25 +124,6 @@ def _check(feature):
                          f"volume, got {tuple(feature.shape)}")
     if not feature.is_contiguous():
         raise ValueError("spatial_stats_3d: feature must be contiguous")
-
-
-def spatial_stats_3d_triton_prev(feature: torch.Tensor,
-                                 temperature: float = 0.01) -> torch.Tensor:
-    """The first CUDA design (for comparisons only): torch.amax, the Triton
-    kernel over slabs of 2048 rows, a torch fold of the partials."""
-    _check(feature)
-    b, v, _, _, c = feature.shape
-    n_rows = v * v * v
-    n_slabs = -(-n_rows // _ROWS_PER_PROG)
-    mx = torch.amax(feature, dim=(1, 2, 3)).float().contiguous()
-    partials = torch.empty((b * n_slabs, 4, c), dtype=torch.float32,
-                           device=feature.device)
-    grid = (b * n_slabs, -(-c // _BLOCK_C))
-    with torch.cuda.device(feature.device):
-        _triton_kernel()[grid](feature, mx, partials, n_rows, c, v, n_slabs,
-                               _ROWS_PER_PROG, 1.0 / temperature, 2.0 / (v - 1),
-                               BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C, num_warps=4)
-    return partials.reshape(b, n_slabs, 4, c).sum(dim=1).transpose(1, 2)
 
 
 def spatial_stats_3d(feature: torch.Tensor,
@@ -231,8 +155,7 @@ def _launch(feature, temperature):
     out, scratch = buf[:4 * b * c].view(b, c, 4), buf[4 * b * c:]
     lib = _build.load("spatial_stats")
 
-    def launch():
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    def launch(stream):
         n_tickets = b * pl.fold_groups + 1
         tickets = _TICKETS.get((dev.index, stream))
         if tickets is None or tickets.numel() < n_tickets:
@@ -244,12 +167,7 @@ def _launch(feature, temperature):
             b, v, c, _DTYPES[feature.dtype], int(pl.bulk), pl.rows_per_slab, pl.slabs,
             pl.groups, FOLD_GROUP, math.log2(math.e) / temperature, 2.0 / (v - 1), stream)
 
-    if dev.index == torch.cuda.current_device():
-        code = launch()
-    else:                       # the launch goes to the current device
-        with torch.cuda.device(dev):
-            code = launch()
-    _build.check(lib, code, "spatial_stats_3d")
+    _build.check(lib, _build.on_device(dev, launch), "spatial_stats_3d")
     spatial_stats_3d.launches += 1
     spatial_stats_3d.cuda_launches += 1
     spatial_stats_3d.last_plan = pl

@@ -12,8 +12,8 @@ Lifecycle of fixed-camera serving:
                            coarse + fine `render_rays` pass.
 
 With field.mlp_backend "pallas_int8" / "pallas_bf16" every tile runs, per
-pass, `ray_expand` (Triton), then either the row gather + `corner_lerp`
-(Triton) + `fused_resnetfc_int8` (CUDA), or, with field.gather_fused_mlp,
+pass, `ray_expand` (CUDA), then either the row gather + `corner_lerp`
+(CUDA) + `fused_resnetfc_int8` (CUDA), or, with field.gather_fused_mlp,
 `fused_gather_resnetfc_int8` (CUDA), which gathers and lerps itself.
 mlp_backend "xla" runs the plain field. The field's weights live in
 `self.field` (convert.py maps a flax tree onto it); the kernels' packed

@@ -29,7 +29,7 @@ from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import (
 from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
     conv3d_k3, conv3d_k3_plain)
 from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import (
-    plan, spatial_stats_3d, spatial_stats_3d_plain, spatial_stats_3d_triton_prev)
+    plan, spatial_stats_3d, spatial_stats_3d_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -213,18 +213,6 @@ def test_spatial_stats_3d_edge_slabs(cuda, dtype):
     want = spatial_stats_3d_plain(x)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert ((got - want).abs() / want[..., :1]).max().item() <= 1e-5
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_spatial_stats_3d_triton_prev(cuda, dtype):
-    """The first design, kept for same-run times, still computes the
-    function; it counts no launch of the wrapper."""
-    x = _randn((1, 20, 20, 20, 128), 7, 0.3).to(cuda, dtype)
-    launches = spatial_stats_3d.launches
-    got = spatial_stats_3d_triton_prev(x)
-    assert spatial_stats_3d.launches == launches
-    want = spatial_stats_3d_plain(x)
     assert ((got - want).abs() / want[..., :1]).max().item() <= 1e-5
 
 
@@ -470,37 +458,95 @@ def _serve_inputs(cuda, r=4096, k=16, dims=(100, 100, 100), d_latent=64, seed=0,
 BOUNDS = (-0.1, -0.3, -0.2, 0.8, 0.7, 0.7)
 
 
-@pytest.mark.parametrize("r,k", [(4096, 16), (256, 3)])
-def test_ray_expand_equals_plain(cuda, r, k):
-    """Round-to-nearest products and quotients in the kernel: bit-equal to
-    the torch elementwise ops."""
+def _rays_leaving_every_face(r, k, seed=3):
+    """Rays from inside the grid's box along +-x, +-y, +-z and at random,
+    with samples out to twice the box's size, so that samples leave through
+    every face; the last 8 rays reach z = 1e9, where the grid index lies
+    outside the int32 range (the conversion saturates)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(BOUNDS[:3]), np.array(BOUNDS[3:])
+    o = rng.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (r, 3))
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    d = rng.standard_normal((r, 3))
+    d[:6 * (r // 12)] = np.repeat(axes, r // 12, axis=0)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = np.concatenate([o, d, np.zeros((r, 2))], 1).astype(np.float32)
+    z = np.sort(rng.uniform(0.0, 2.0, (r, k)), axis=1)
+    z[-8:] = np.linspace(1.0, 1e9, k)
+    return torch.from_numpy(rays), torch.from_numpy(z.astype(np.float32))
+
+
+@pytest.mark.parametrize("r,k,faces", [(4096, 16, False), (4096, 8, False), (4096, 24, False),
+                                       (512, 16, False), (512, 8, False), (512, 24, False),
+                                       (256, 3, False), (4096, 16, True), (512, 24, True)])
+def test_ray_expand_equals_plain(cuda, r, k, faces):
+    """Round-to-nearest intrinsics for every operation in the kernel:
+    bit-equal to the torch elementwise ops, at the frame's tiles (K = 16,
+    8), the calibration's 24 samples and a ragged K; `faces` takes samples
+    out through every face of the grid."""
     from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import (
         ray_expand, ray_expand_plain)
-    rays, z, _ = _serve_inputs(cuda, r, k, dims=(6, 7, 9))
-    launches = ray_expand.launches
-    got = ray_expand(rays, z, (6, 7, 9), BOUNDS)
+    dims = (100, 100, 100) if r == 4096 else (6, 7, 9)
+    if faces:
+        rays, z = (t.to(cuda) for t in _rays_leaving_every_face(r, k))
+    else:
+        rays, z, _ = _serve_inputs(cuda, r, k, dims=(2, 2, 2))    # the grid is not used
+    launches, cuda_launches = ray_expand.launches, ray_expand.cuda_launches
+    got = ray_expand(rays, z, dims, BOUNDS)
     torch.cuda.synchronize()
     assert ray_expand.launches == launches + 1
-    want = ray_expand_plain(rays, z, (6, 7, 9), BOUNDS)
+    assert ray_expand.cuda_launches == cuda_launches + 1
+    want = ray_expand_plain(rays, z, dims, BOUNDS)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+    if faces:    # base indices clipped at both ends of every axis
+        d, h, w = dims
+        flat = want[2].long()
+        for idx, size in ((flat % (w + 1), w), (flat // (w + 1) % (h + 1), h),
+                          (flat // ((w + 1) * (h + 1)), d)):
+            assert idx.min().item() == 0 and idx.max().item() == size
 
 
-@pytest.mark.parametrize("m", [65536, 1000])
-def test_corner_lerp(cuda, m):
-    """One bf16 ulp of each output, at most 2^-7 of it (the plain einsum sums
-    in another order, and the two fp32 sums can round to neighbouring bf16
-    values)."""
-    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
-    rows = _randn((m, 512), 0).to(cuda, torch.bfloat16)
+# (rows dtype, M, C, rows at an odd element offset, vector path expected)
+_LERP_CASES = [(torch.bfloat16, 65536, 64, False, True), (torch.bfloat16, 1000, 64, False, True),
+               (torch.float32, 32768, 64, False, True), (torch.float32, 1000, 8, False, True),
+               (torch.bfloat16, 4096, 12, False, False), (torch.float32, 4096, 6, False, False),
+               (torch.bfloat16, 4096, 64, True, False), (torch.float32, 999, 64, True, False)]
+
+
+@pytest.mark.parametrize("case", range(len(_LERP_CASES)))
+def test_corner_lerp(cuda, case):
+    """Both paths of the kernel against the plain einsum: the 16-byte path
+    (bf16 and fp32 rows), the scalar path for channels that are not whole
+    16-byte chunks and for rows that start off a 16-byte boundary (a view
+    into a flat buffer at an odd element offset, contiguous). bf16: one bf16
+    ulp of each output, at most 2^-7 of it (the plain einsum sums in another
+    order, and the two fp32 sums can round to neighbouring bf16 values).
+    fp32: 1e-5 of the largest |output| (eight fp32 terms in another order,
+    each under it); a dropped corner misses either by far."""
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import (
+        corner_lerp, corner_lerp_plain, vector_path)
+    dtype, m, c, odd, vector = _LERP_CASES[case]
+    src = _randn((m * 8 * c + 1,), 0).to(cuda, dtype)
+    rows = (src[1:] if odd else src[:-1]).view(m, 8 * c)
     w = torch.rand((8, m), generator=torch.Generator().manual_seed(1)).to(cuda)
-    launches = corner_lerp.launches
+    assert rows.is_contiguous() and vector_path(rows) == vector
+    launches, cuda_launches = corner_lerp.launches, corner_lerp.cuda_launches
     got = corner_lerp(rows, w)
     torch.cuda.synchronize()
     assert corner_lerp.launches == launches + 1
+    assert corner_lerp.cuda_launches == cuda_launches + 1
+    assert got.dtype == dtype and got.shape == (m, c)
     want = corner_lerp_plain(rows, w).float()
-    assert ((got.float() - want).abs() <= 2 ** -7 * want.abs() + 1e-6).all()
+    no_last = corner_lerp_plain(rows, w * torch.tensor([1.0] * 7 + [0.0], device=cuda)[:, None])
+    for out, ok in ((got, True), (no_last, False)):
+        gap = (out.float() - want).abs()
+        if dtype == torch.bfloat16:
+            within = (gap <= 2 ** -7 * want.abs() + 1e-6).all()
+        else:
+            within = (gap <= 1e-5 * want.abs().max()).all()
+        assert bool(within) == ok
 
 
 def _mlp_case(cuda, quantized, n, d_latent=64, d_hidden=512):

@@ -2,7 +2,7 @@
 the wrapper runs on a CPU tensor) against the JAX Pallas kernel under
 force_tpu_interpret_mode, for fp32 and bf16 input; the keypoint wrapper
 against both JAX keypoint paths; non-cubic input through the plain
-spatial_softmax_3d. The Triton kernel is held against the plain version in
+spatial_softmax_3d. The CUDA kernel is held against the plain version in
 test_torch_kernels_cuda.py, on the card.
 
 Tolerances: the sums are fp32 over V^3 terms in another order, 1e-5
