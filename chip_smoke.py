@@ -62,14 +62,25 @@ Phases, each reported on its own line:
      torch.profiler.
   5. grad: forward and backward of the `final` conv (100^3, 128 -> 64,
      bf16) and of corner_lerp (65536 x 512 bf16) with the kernel against
-     the plain path (a planted fault each must fail the check), then the
-     five kernels without a backward must refuse grad and run under no_grad.
+     the plain path (a planted fault each must fail the check), the conv's
+     VJP timed alone, then the five kernels without a backward must refuse
+     grad and run under no_grad.
+  6. train: the PerAct BC train step of configs/peract.yaml at full width
+     (see train_phase), conv_backend "conv2d" and "pallas" from the same
+     weights, batch and SE(3) draws: step p50, losses, peak memory, launch
+     counts (the kernel forward, its wgmma design and the VJP once a step
+     with the knob on, never with it off), one profiled step (device time
+     split into forward, backward and optimizer); the kernel path's
+     gradients against the plain path's within the plain path's own
+     bf16-vs-fp32 gap, two planted faults that must fail that check, and
+     flash attention and the stats kernel refusing grad in a train step.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -96,6 +107,21 @@ SERVE_FIELD = dict(d_latent=64, d_embed=512, d_hidden=512, n_blocks=5, combine_l
                    mask_outside=True)
 FRAMES = 10
 FRAME_WARMUP = 5
+# the train phase: configs/peract.yaml as written (a CPU test holds the two
+# equal; the card has no PyYAML)
+PERACT = dict(model=dict(depth=6, voxel_size=100, initial_dim=10, num_latents=2048,
+                         latent_dim=512, compute_dtype="bfloat16"),
+              voxelizer=dict(voxel_size=100, feature_size=3, max_num_coords=220000),
+              coord_bounds=[-0.1, -0.3, -0.2, 0.8, 0.7, 0.7], rotation_resolution=5.0,
+              trans_aug_range=[0.125, 0.05, 0.05],
+              train=dict(num_steps=100000, ckpt_every=10000, log_every=50,
+                         optim=dict(lr=1.0e-4, weight_decay=1.0e-6)))
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+# the trans decoder's bias shifts every trans logit alike, which the softmax
+# CE does not see: its gradient is zero, and what a step computes for it is
+# rounding
+INVARIANT = "trans_decoder.bias"
 # fused MLP kernels vs their plain versions: the largest gap within 2^-4 of
 # each output's largest |value|, and at most MLP_SHARE of the outputs more
 # than one bf16 ulp of that scale (2^-8) apart. An fp32 sum that rounds one
@@ -186,6 +212,24 @@ def host_us(torch, fn, reps):
         times.append((time.perf_counter() - t) * 1e6)
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def device_rows(torch, prof):
+    """(name, device ms, count) of each kernel, copy and set in a profile,
+    longest first. The device-side spans of record_function ranges (user
+    annotations) are left out: they repeat the time of the kernels inside
+    them, gaps included."""
+    spans = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0 and e.key not in spans]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def range_device_ms(torch, prof, name):
+    """Device time of the kernels launched inside the host range `name`."""
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.key == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
 
 
 def bound(flops, nbytes, dtype):
@@ -576,14 +620,9 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             rend.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type != torch.autograd.DeviceType.CPU
-                and e.self_device_time_total > 0]
+        rows = device_rows(torch, prof)
         device_ms = sum(x[1] for x in rows)
-        rows.sort(key=lambda x: -x[1])
-        ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-                  if e.key in ("expand_corners",)}
+        ranges = {"expand_corners": range_device_ms(torch, prof, "expand_corners")}
         emit("render_profile", gather_fused_mlp=label == "gather_fused",
              frame_wall_ms=wall_ms, device_ms=device_ms,
              device_busy_share=device_ms / wall_ms, ranges_device_ms=ranges,
@@ -645,10 +684,16 @@ def grad_phase(torch, dev, card, packed):
     # planted: the taps of dk flipped (the error of a transposed conv whose
     # kernel is not flipped back)
     flipped = gap_of_scale(w.grad.flip(0, 1, 2), wp.grad)
+    torch.backends.cudnn.deterministic = False
+    # the VJP alone (cuDNN's data and weight gradients, the bias sum): the
+    # backward of `final` on every train step with the kernel
+    with torch.no_grad():
+        vjp_ms = median_ms(torch, lambda: conv3d_k3_vjp(x, w, g), 10)
+        vjp_device_ms = profiled_ms(torch, lambda: conv3d_k3_vjp(x, w, g), 10)
     emit("grad", name="conv3d_k3", shape=[1, 100, 100, 100, 128, 64], dtype="bfloat16",
          gap_of_scale=gaps, tol_of_scale=tols, equals_own_backward=same,
-         dk_taps_flipped_gap=flipped, kernel_fwd_bwd_s=kernel_s, card=card)
-    torch.backends.cudnn.deterministic = False
+         dk_taps_flipped_gap=flipped, kernel_fwd_bwd_s=kernel_s, vjp_ms=vjp_ms,
+         vjp_device_ms=vjp_device_ms, card=card)
     if not same:
         fail("grad conv3d_k3: the Function's gradients differ from conv3d_k3_vjp")
     if any(gaps[k] > tols[k] for k in gaps):
@@ -722,6 +767,199 @@ def grad_phase(torch, dev, card, packed):
         fail(f"grad: a kernel without a backward did not refuse grad: {refused}")
 
 
+def train_phase(torch, dev, card):
+    """Phase 6: the PerAct BC train step of configs/peract.yaml at full width
+    (conv1 encoder, bf16, depth 6, 100^3 x 10 voxels, 2048 x 512 latents,
+    220000 padded points, batch 1, AdamW lr 1e-4, weight decay 1e-6),
+    weights random from a seeded generator, on one fixed synthetic batch
+    and fixed SE(3) draws. conv_backend "conv2d" (the file's setting, the
+    plain cuDNN conv) and "pallas" (the k3 kernel forward and its VJP) from
+    the same weights: TRAIN_WARMUP untimed and TRAIN_STEPS timed steps each,
+    with their launch counts, losses, peak memory and one profiled step.
+    The first step's gradients of the kernel path are held per tensor
+    against the plain path's, as max |dg| / max |g|, within the gap the
+    plain path itself shows between bf16 and fp32 compute (at least 2^-8);
+    two planted faults (the kernel's dk zeroed, its taps flipped in the
+    forward) must each fail that check. Train steps with flash attention
+    or the stats kernel on must refuse grad."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch.convert import final_conv_as_plain
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_cuda
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig, PerActTrainer
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict
+
+    base = from_dict(PerActConfig, PERACT)
+
+    def with_model(**kw):
+        return dataclasses.replace(base, model=dataclasses.replace(base.model, **kw))
+
+    t0 = time.perf_counter()
+    tr_on = PerActTrainer(with_model(conv_backend="pallas"), device=dev)
+    sd_on = {k: v.detach().clone()
+             for k, v in tr_on.init_state(torch.Generator().manual_seed(0))
+             .module.state_dict().items()}
+    sd_off = final_conv_as_plain(sd_on)
+    batch = next(tr_on.synthetic_data(batch_size=1, seed=0))
+    draws = torch.tensor([[0.37, -0.61, 0.18]], device=dev)
+    setup_s = time.perf_counter() - t0
+
+    def fresh(cfg):
+        tr = PerActTrainer(cfg, device=dev)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        state.module.load_state_dict(sd_on if cfg.model.conv_backend == "pallas" else sd_off)
+        return tr, state
+
+    def grads_of(state):
+        """The step's gradients by parameter, the plain conv's in the
+        kernel's layout and names."""
+        g = {n: p.grad.detach().float().clone() for n, p in state.module.named_parameters()}
+        if "final.Conv_0.weight" in g:
+            g["final.pallas_kernel"] = g.pop("final.Conv_0.weight").permute(2, 3, 4, 1, 0)
+            g["final.pallas_bias"] = g.pop("final.Conv_0.bias")
+        return g
+
+    def one_step(cfg):
+        tr, state = fresh(cfg)
+        state, m = tr.train_step(state, batch, draws=draws)
+        return grads_of(state), m["loss"].item()
+
+    def profiled(tr, state):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            tr.train_step(state, batch, draws=draws)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        rows = device_rows(torch, prof)
+        device_ms = sum(r[1] for r in rows)
+        split = {k: range_device_ms(torch, prof, f"train_step.{k}")
+                 for k in ("forward", "optimizer")}
+        # autograd runs the backward on its own thread, outside the range
+        split["backward"] = device_ms - split["forward"] - split["optimizer"]
+        cpu = torch.autograd.DeviceType.CPU
+        ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if e.device_type == cpu
+                      and e.self_device_time_total > 0), key=lambda r: -r[1])
+        nodes = sorted(((e.key.split(": ")[-1], e.device_time_total / 1e3, e.count)
+                        for e in prof.key_averages() if e.device_type == cpu
+                        and e.key.startswith("autograd::engine::evaluate_function")),
+                       key=lambda r: -r[1])
+
+        def top(rs, n):
+            return [{"name": nm[:80], "ms": ms, "count": c} for nm, ms, c in rs[:n]]
+
+        return dict(step_wall_ms=wall_ms, device_ms=device_ms,
+                    device_busy_share=device_ms / wall_ms,
+                    device_events=sum(r[2] for r in rows), split_device_ms=split,
+                    top_kernels=top(rows, 12), top_ops=top(ops, 12),
+                    top_backward_nodes=top(nodes, 10))
+
+    # both settings step in turns (A B, B A, ...), so that host noise falls
+    # on both p50s alike; the counts are zeroed before and read after each
+    # step, and the peak memory is each setting's highest over its steps
+    # (the other setting's parameters and AdamW state stay resident)
+    runs = {conv: dict(zip(("tr", "state"), fresh(with_model(conv_backend=conv))), times=[],
+                       losses=[], peak_gb=0.0, launches=dict.fromkeys(
+                           ("conv3d_k3", "conv3d_k3_wgmma", "conv3d_k3_vjp"), 0))
+            for conv in ("conv2d", "pallas")}
+    torch.cuda.synchronize()
+    live_gb = torch.cuda.memory_allocated() / 2 ** 30
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    for i in range(n):
+        for conv in (("conv2d", "pallas") if i % 2 == 0 else ("pallas", "conv2d")):
+            r = runs[conv]
+            torch.cuda.reset_peak_memory_stats()
+            conv3d_k3.launches = conv3d_k3.wgmma_launches = conv3d_k3.vjp_calls = 0
+            t = time.perf_counter()
+            r["state"], m = r["tr"].train_step(r["state"], batch, draws=draws)
+            torch.cuda.synchronize()
+            if i >= TRAIN_WARMUP:
+                r["times"].append((time.perf_counter() - t) * 1e3)
+            for k, v in (("conv3d_k3", conv3d_k3.launches),
+                         ("conv3d_k3_wgmma", conv3d_k3.wgmma_launches),
+                         ("conv3d_k3_vjp", conv3d_k3.vjp_calls)):
+                r["launches"][k] += v
+            r["peak_gb"] = max(r["peak_gb"], torch.cuda.max_memory_allocated() / 2 ** 30)
+            r["losses"].append(m["loss"].item())
+            if i == 0:
+                r["grads"] = grads_of(r["state"])
+    for conv, r in runs.items():
+        times, losses, launches = r["times"], r["losses"], r["launches"]
+        emit("train", conv_backend=conv, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS,
+             p50_ms=statistics.median(times), step_ms=times, loss_first=losses[0],
+             loss_last=losses[-1], losses=losses, launches=launches,
+             launches_per_step={k: v / n for k, v in launches.items()},
+             peak_mem_gb=r["peak_gb"], live_before_gb=live_gb, setup_s=setup_s,
+             **profiled(r["tr"], r["state"]), card=card)
+        want = n if conv == "pallas" else 0
+        if launches != {k: want for k in launches}:
+            fail(f"train {conv}: launches {launches} over {n} steps, want {want} of each")
+        if not all(map(math.isfinite, losses)):
+            fail(f"train {conv}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"train {conv}: the loss on the fixed batch did not fall: {losses}")
+        del r["tr"], r["state"]
+
+    def gaps(got, want):
+        return {n: ((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                for n, w in want.items() if n != INVARIANT}
+
+    # the tolerance: what bf16 compute itself moves each gradient on the
+    # plain path, against the same step in fp32
+    g_fp32, loss_fp32 = one_step(with_model(compute_dtype="float32"))
+    plain = runs["conv2d"]["grads"]
+    tol = {n: max(v, 2 ** -8) for n, v in gaps(plain, g_fp32).items()}
+    del g_fp32
+
+    def check(got):
+        """(worst gap / tolerance and its tensor, gaps of `final`)."""
+        g = gaps(got, plain)
+        worst = max(g, key=lambda n: g[n] / tol[n])
+        return g[worst] / tol[worst], worst, {n: g[n] for n in g if n.startswith("final.")}
+
+    ratio, worst, final_gaps = check(runs["pallas"]["grads"])
+    launch = conv3d_cuda._launch
+    vjp = conv3d_cuda.conv3d_k3_vjp
+    faults = {}
+    try:
+        conv3d_cuda.conv3d_k3_vjp = lambda *a: (lambda dx, dk, db: (dx, torch.zeros_like(dk),
+                                                                  db))(*vjp(*a))
+        faults["dk_zeroed"] = check(one_step(with_model(conv_backend="pallas"))[0])
+        conv3d_cuda.conv3d_k3_vjp = vjp
+        conv3d_cuda._launch = lambda x, k, b: launch(x, k.flip(0, 1, 2).contiguous(), b)
+        faults["taps_flipped"] = check(one_step(with_model(conv_backend="pallas"))[0])
+    finally:
+        conv3d_cuda._launch, conv3d_cuda.conv3d_k3_vjp = launch, vjp
+
+    refused = {}
+    for knob, name in (({"use_flash_attention": True}, "flash_attention"),
+                       ({"stats_backend": "pallas"}, "spatial_stats_3d")):
+        tr, state = fresh(with_model(**knob))
+        try:
+            tr.train_step(state, batch, draws=draws)
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = name in str(e) and "requires a gradient" in str(e)
+        del tr, state
+    emit("train_grad", tensors=len(tol), worst_gap_over_tol=ratio, worst_tensor=worst,
+         worst_gap=ratio * tol[worst], worst_tol=tol[worst], final_gaps=final_gaps,
+         plain_bf16_vs_fp32_gap={"max": max(tol.values()),
+                                 "median": statistics.median(tol.values()),
+                                 "final": {n: tol[n] for n in final_gaps}},
+         loss_fp32=loss_fp32, loss_bf16=runs["conv2d"]["losses"][0],
+         planted_faults={k: {"worst_gap_over_tol": r, "worst_tensor": n, "final_gaps": f}
+                         for k, (r, n, f) in faults.items()},
+         refused_under_grad=refused, card=card)
+    if not ratio <= 1.0:
+        fail(f"train: the kernel path's gradient of {worst} is {ratio} x its tolerance")
+    for k, (r, n, _) in faults.items():
+        if not r > 1.0:
+            fail(f"train: the gradient check does not see the planted fault {k} ({r})")
+    if not all(refused.values()):
+        fail(f"train: a kernel without a backward did not refuse grad: {refused}")
+
+
 def mlp_err(got, want):
     """(largest gap, tolerance MLP_TOL of the largest |output|) over out and
     hidden, and the share of outputs more than one bf16 ulp of that scale
@@ -749,6 +987,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
 
+    from real_robot_nerf_actor_tpu_torch.convert import final_conv_as_plain
     from real_robot_nerf_actor_tpu_torch.data.replay import ReplayRobotIO
     from real_robot_nerf_actor_tpu_torch.data.synthetic import (
         make_replay_steps, make_synthetic_demo, make_synthetic_scene)
@@ -981,9 +1220,7 @@ def main():
     lang = np.zeros((77, 512), np.float32)
     t0 = time.perf_counter()
     sd_on = PerceiverIO.initialized(cfg_on, torch.Generator().manual_seed(0)).state_dict()
-    sd_off = dict(sd_on)
-    sd_off["final.Conv_0.weight"] = sd_off.pop("final.pallas_kernel").permute(4, 3, 0, 1, 2)
-    sd_off["final.Conv_0.bias"] = sd_off.pop("final.pallas_bias")
+    sd_off = final_conv_as_plain(sd_on)
     server_on = PolicyServer(serve_cfg, cfg_on, spec, sd_on, lang, device=dev)
     server_off = PolicyServer(serve_cfg, cfg_off, spec, sd_off, lang, device=dev)
     scene = make_synthetic_scene(seed=0)
@@ -1099,12 +1336,8 @@ def main():
             wall_ms = (time.perf_counter() - t) * 1e3
         # device-side events only: a CPU op's self device time repeats the
         # time of the kernels it launched, which are rows of their own
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type != torch.autograd.DeviceType.CPU
-                and e.self_device_time_total > 0]
+        rows = device_rows(torch, prof)
         device_ms = sum(r[1] for r in rows)
-        rows.sort(key=lambda r: -r[1])
         emit("profile", path=path, step_wall_ms=wall_ms, device_ms=device_ms,
              stats_kernel_ms=sum(r[1] for r in rows if "stats_kernel" in r[0]),
              device_busy_share=device_ms / wall_ms,
@@ -1118,7 +1351,10 @@ def main():
     # ------------------------------------------------------------ 5. grad
     grad_phase(torch, dev, card, packed)
 
-    # ------------------------------------------------------- 6. summary
+    # ------------------------------------------------------------ 6. train
+    train_phase(torch, dev, card)
+
+    # ------------------------------------------------------- 7. summary
     info = {
         "flash_attention": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/flash_attention.cu",
                             "real_robot_nerf_actor_tpu/ops/attention_pallas.py:70"),

@@ -20,6 +20,10 @@ layout:
       packages
 
 Inputs are numpy arrays (or anything `np.asarray` takes); no JAX needed.
+
+`load_optax_state` carries a JAX optimizer state across as well, so that a
+JAX run resumes in the port on the same trajectory: the Adam moments are
+elementwise, so they take the same leaf mapping as the parameters.
 """
 from __future__ import annotations
 
@@ -65,3 +69,46 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name, arr = _convert_leaf(path, np.asarray(value, np.float32))
             out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out
+
+
+def final_conv_as_plain(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A PerceiverIO state_dict of `conv_backend: pallas` for the same net
+    with the plain conv: `final.pallas_kernel` (3, 3, 3, Cin, Cout) becomes
+    `final.Conv_0.weight` (Cout, Cin, 3, 3, 3), `final.pallas_bias`
+    `final.Conv_0.bias`."""
+    sd = dict(state_dict)
+    sd["final.Conv_0.weight"] = sd.pop("final.pallas_kernel").permute(4, 3, 0, 1, 2)
+    sd["final.Conv_0.bias"] = sd.pop("final.pallas_bias")
+    return sd
+
+
+def load_optax_state(optimizer, opt_state) -> None:
+    """Fill the port's `train.trainer.Optimizer` from the state of the JAX
+    package's `make_optimizer(optimizer.cfg)` (namedtuples and dicts as
+    optax builds them, leaves as numpy arrays), nested as make_optimizer
+    nests it for that config:
+      ApplyIfFiniteState (skip_nonfinite > 0)
+        -> MultiStepsState (accum_steps > 1)
+          -> (clip's EmptyState, adam chain) when grad_clip > 0, else the
+             adam chain: (ScaleByAdamState(count, mu, nu), ...).
+    mu, nu and the MultiSteps accumulator are params trees; they go
+    through `flax_to_state_dict`'s mapping to the parameters' names."""
+    cfg = optimizer.cfg
+    s = opt_state
+    if cfg.skip_nonfinite > 0:
+        optimizer.notfinite_count = int(s.notfinite_count)
+        optimizer.total_notfinite = int(s.total_notfinite)
+        optimizer.last_finite = bool(s.last_finite)
+        s = s.inner_state
+    if cfg.accum_steps > 1:
+        optimizer.mini_step = int(s.mini_step)
+        optimizer.gradient_step = int(s.gradient_step)
+        acc = flax_to_state_dict({"params": s.acc_grads})
+        optimizer.acc = [acc[n].to(p.device).clone()
+                         for n, p in zip(optimizer.names, optimizer.params)]
+        s = s.inner_opt_state
+    if cfg.grad_clip > 0:
+        s = s[1]
+    adam = s[0]
+    optimizer.load_moments(int(adam.count), flax_to_state_dict({"params": adam.mu}),
+                           flax_to_state_dict({"params": adam.nu}))

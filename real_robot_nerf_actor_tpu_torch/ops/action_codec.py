@@ -1,6 +1,6 @@
 """Action codec: continuous gripper pose <-> discrete (voxel index, euler
-bins, grip, collision) and the argmax decode (counterpart of the JAX
-package's `ops/action_codec.py`)."""
+bins, grip, collision), one-hot expert targets, and the argmax decode
+(counterpart of the JAX package's `ops/action_codec.py`)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -32,6 +32,31 @@ def discretize_action(xyz: torch.Tensor, rotation_deg: torch.Tensor,
     rot_grip = torch.cat([rot_bins, grip[..., None]], dim=-1)
     coll = ignore_collisions.to(torch.int32)[..., None]
     return DiscreteAction(trans=trans, rot_grip=rot_grip, collision=coll)
+
+
+def one_hot_expert_actions(action: DiscreteAction, voxel_size: int,
+                           num_rotation_classes: int = 72):
+    """One-hot int32 targets: trans (B, V^3), rot_x/y/z (B, R), grip (B, 2),
+    collision (B, 2)."""
+    b = action.trans.shape[0]
+    t = action.trans.long()
+    flat_idx = (t[:, 0] * voxel_size + t[:, 1]) * voxel_size + t[:, 2]
+    trans_oh = torch.zeros((b, voxel_size ** 3), dtype=torch.int32,
+                           device=t.device)
+    trans_oh[torch.arange(b, device=t.device), flat_idx] = 1
+
+    def one_hot(idx, n):   # rows of eye: an index of -1 wraps, as in JAX
+        return torch.eye(n, dtype=torch.int32, device=idx.device)[idx.long()]
+
+    rot_oh = one_hot(action.rot_grip[:, :3], num_rotation_classes)  # (B, 3, R)
+    return {
+        "trans": trans_oh,
+        "rot_x": rot_oh[:, 0],
+        "rot_y": rot_oh[:, 1],
+        "rot_z": rot_oh[:, 2],
+        "grip": one_hot(action.rot_grip[:, 3], 2),
+        "collision": one_hot(action.collision[:, 0], 2),
+    }
 
 
 def argmax_3d(q_trans: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,10 @@ not on every call.
 
 Gradient: the CUDA branch is a `torch.autograd.Function` whose backward is
 the JAX package's custom VJP (`_conv3d_k3_bwd`, the VJP of the plain XLA
-conv): dx and dk from the conv's own input and weight gradients
-(`torch.nn.grad`, cuDNN on the card) in the kernel's dtype, db the fp32 sum
-of the output gradient over B, D, H and W. There is no backward kernel:
-the reference has none either.
+conv): dx and dk from the conv's own input and weight gradients (one
+`convolution_backward`, cuDNN on the card, every operand channels-last) in
+the kernel's dtype, db the fp32 sum of the output gradient over B, D, H
+and W. There is no backward kernel: the reference has none either.
 """
 from __future__ import annotations
 
@@ -100,15 +100,23 @@ def conv3d_k3_vjp(x: torch.Tensor, kernel: torch.Tensor, g: torch.Tensor,
     kernel's, db (Cout,) fp32; each None where `needs` says so."""
     g = g.to(x.dtype)
     xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-    wn = kernel.to(x.dtype).permute(4, 3, 0, 1, 2)
+    # the weight in channels-last order as well: cuDNN then keeps every
+    # operand in that format and hands dx back as a contiguous NDHWC tensor
+    # (from a default-format weight it returns NCDHW, whose NDHWC view every
+    # later backward op reads and writes strided)
+    wn = kernel.to(x.dtype).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
     dx = dk = db = None
-    if needs[0]:
-        dx = torch.nn.grad.conv3d_input(xn.shape, wn, gn, padding=1).permute(0, 2, 3, 4, 1)
-    if needs[1]:
-        dk = torch.nn.grad.conv3d_weight(xn, wn.shape, gn, padding=1) \
-            .permute(2, 3, 4, 1, 0).to(kernel.dtype)
+    if needs[0] or needs[1]:
+        dxn, dkn, _ = torch.ops.aten.convolution_backward(
+            gn, xn, wn, None, (1, 1, 1), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1,
+            (bool(needs[0]), bool(needs[1]), False))
+        if needs[0]:
+            dx = dxn.permute(0, 2, 3, 4, 1)
+        if needs[1]:
+            dk = dkn.permute(2, 3, 4, 1, 0).to(kernel.dtype)
     if needs[2]:
-        db = g.float().sum(dim=(0, 1, 2, 3))
+        db = g.sum(dim=(0, 1, 2, 3), dtype=torch.float32)
     return dx, dk, db
 
 
@@ -147,6 +155,7 @@ class Conv3dK3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, kernel = ctx.saved_tensors
+        conv3d_k3.vjp_calls += 1
         return conv3d_k3_vjp(x, kernel, g, ctx.needs_input_grad)
 
 
@@ -163,3 +172,4 @@ def conv3d_k3(x: torch.Tensor, kernel: torch.Tensor,
 
 conv3d_k3.launches = 0         # calls that launched a kernel (either design)
 conv3d_k3.wgmma_launches = 0   # of those, calls of the wgmma/TMA kernel
+conv3d_k3.vjp_calls = 0        # backward passes through Conv3dK3 (conv3d_k3_vjp)

@@ -17,7 +17,11 @@ def point_to_voxel_index(point: torch.Tensor, voxel_size: int,
     """
     bb_min = coord_bounds[..., 0:3]
     bb_max = coord_bounds[..., 3:6]
-    res = (bb_max - bb_min) / (voxel_size + _EPS)
+    span = bb_max - bb_min
+    # the divisor lies on the points' device: CUDA divides by a host scalar
+    # as a product with its fp32 reciprocal, one ulp from the quotient at
+    # times, which moves a floor (and a CE label) by one voxel
+    res = span / span.new_full((), voxel_size + _EPS)
     idx = torch.floor((point - bb_min) / (res + _EPS)).to(torch.int32)
     return torch.clamp(idx, max=voxel_size - 1)
 

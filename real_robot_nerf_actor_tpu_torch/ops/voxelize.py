@@ -57,7 +57,8 @@ def voxelize(coords: torch.Tensor, features: torch.Tensor,
         coord_bounds = coord_bounds[None].expand(b, 6)
     bb_min = coord_bounds[:, None, 0:3]
     bb_max = coord_bounds[:, None, 3:6]
-    res = (bb_max - bb_min) / (float(v) + _EPS)
+    span = bb_max - bb_min
+    res = span / span.new_full((), float(v) + _EPS)   # see geometry.py
     shifted_min = bb_min - res
     idx = torch.floor((coords - shifted_min) / (res + _EPS)).to(torch.int64)
     idx = torch.clamp(idx, 0, vp - 1)

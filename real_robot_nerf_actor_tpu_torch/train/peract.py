@@ -1,15 +1,63 @@
-"""PerAct configuration (the port's copy of `PerActConfig` from the JAX
-package's `train/peract.py`; the BC trainer comes with the training slice).
-Same fields and meanings, so `configs/peract.yaml` and the `peract:`
-section of `configs/serve.yaml` load into both packages."""
+"""PerAct BC training: SE(3) aug -> voxelize -> PerceiverIO -> cross-entropy
+losses -> AdamW (counterpart of the JAX package's `train/peract.py`).
+
+`PerActConfig` has the JAX package's fields and meanings, so
+`configs/peract.yaml` loads into both packages. `PerActTrainer.train_step`
+follows the JAX step line for line, eagerly: per-sample shifts, the next
+keyframe as the action and the current one as the proprio position,
+voxelization, the forward, `bc_losses`, backward and the optimizer step.
+With `conv_backend: pallas` on a CUDA device the `final` conv runs the k3
+kernel forward and its VJP backward (ops/conv3d_cuda.py). The flash
+attention and spatial-stats kernels have no backward, so their knobs stay
+off in training (their wrappers refuse grad). The UNet encoder's BatchNorm
+in train mode is not ported yet: `train_step` refuses `input_encoder: unet`.
+
+Entry points run on CUDA unless the caller passes device="cpu"; without a
+CUDA device they raise rather than fall back.
+
+    python -m real_robot_nerf_actor_tpu_torch.train.peract --steps 100
+"""
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
-from real_robot_nerf_actor_tpu_torch.models.perceiver import PerceiverConfig
-from real_robot_nerf_actor_tpu_torch.ops.voxelize import VoxelizerSpec
-from real_robot_nerf_actor_tpu_torch.train.trainer import TrainConfig
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from real_robot_nerf_actor_tpu_torch.data.replay import PointCloudSample, pad_point_cloud
+from real_robot_nerf_actor_tpu_torch.data.synthetic import (
+    make_synthetic_demo, make_synthetic_scene)
+from real_robot_nerf_actor_tpu_torch.models.perceiver import PerceiverConfig, PerceiverIO
+from real_robot_nerf_actor_tpu_torch.ops.action_codec import DiscreteAction, discretize_action
+from real_robot_nerf_actor_tpu_torch.ops.geometry import point_to_voxel_index
+from real_robot_nerf_actor_tpu_torch.ops.se3_aug import apply_se3_augmentation
+from real_robot_nerf_actor_tpu_torch.ops.voxelize import VoxelizerSpec, voxelize
+from real_robot_nerf_actor_tpu_torch.train.serve import resolve_device
+from real_robot_nerf_actor_tpu_torch.train.trainer import (
+    Optimizer, TrainConfig, Trainer, TrainState)
+
+
+def iter_transitions(rng: np.random.Generator, train_demos, num_transitions,
+                     sample_mode: str = "uniform") -> Iterator[Tuple[int, int]]:
+    """Yield (demo, keyframe) pairs forever. "uniform": i.i.d. draws;
+    "demo_cycle": one random demo's whole transition set, shuffled, before
+    the next demo is drawn. num_transitions: demo -> keyframes - 1."""
+    if sample_mode not in ("uniform", "demo_cycle"):
+        raise ValueError(f"unknown sample_mode {sample_mode!r}")
+    cycle: list = []
+    while True:
+        if sample_mode == "demo_cycle":
+            if not cycle:
+                d = train_demos[int(rng.integers(0, len(train_demos)))]
+                ks = rng.permutation(num_transitions(d))
+                cycle = [(d, int(k)) for k in ks]
+            yield cycle.pop()
+        else:
+            d = train_demos[int(rng.integers(0, len(train_demos)))]
+            yield d, int(rng.integers(0, num_transitions(d)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,8 +68,257 @@ class PerActConfig:
     rotation_resolution: float = 5.0
     trans_aug_range: Tuple[float, float, float] = (0.125, 0.05, 0.05)
     use_se3_aug: bool = True
-    lambda_aux_trans: float = 0.5
-    trans_label_smooth: float = 0.0
-    z_loss: float = 0.0
+    lambda_aux_trans: float = 0.5    # weight of the aux coarse-trans CE
+    trans_label_smooth: float = 0.0  # epsilon of the 27-neighbour trans smoothing
+    z_loss: float = 0.0              # weight of mean(logsumexp^2) on the CE heads
     se3_symmetric_clamp: bool = True
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax's softmax_cross_entropy_with_integer_labels: logsumexp minus
+    the label's logit. A label of -1 (the codec's rotation bin below 0)
+    wraps to the last class, as JAX's indexing wraps it."""
+    labels = labels.long()
+    labels = torch.where(labels < 0, labels + logits.shape[-1], labels)
+    return torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[:, None])[:, 0]
+
+
+def _flat(trans: torch.Tensor, v: int) -> torch.Tensor:
+    t = trans.long()
+    return (t[:, 0] * v + t[:, 1]) * v + t[:, 2]
+
+
+def bc_losses(q_trans: torch.Tensor, q_rot_grip: torch.Tensor,
+              q_collision: torch.Tensor, action: DiscreteAction, voxel_size: int,
+              num_rotation_classes: int = 72, q_trans_aux: Optional[torch.Tensor] = None,
+              patch_size: int = 5, lambda_aux: float = 0.5, trans_smooth: float = 0.0,
+              z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Integer-label cross-entropy on every head against the discrete
+    expert action: trans (V^3-way), rot x/y/z (R-way), grip and collision
+    (2-way), summed per sample and averaged over the batch.
+
+    trans_smooth > 0 spreads epsilon of the trans target over the
+    separable [0.25, 0.5, 0.25]^3 neighbourhood (indices clipped at the
+    grid's edge); z_loss > 0 adds z_loss * mean(logsumexp^2) over the
+    trans and rot/grip softmaxes; q_trans_aux adds lambda_aux * CE of the
+    coarse (V/patch)^3 head against the down-binned target."""
+    b = q_trans.shape[0]
+    r = num_rotation_classes
+    v = voxel_size
+    logits = q_trans.reshape(b, -1)
+    flat_idx = _flat(action.trans, v)
+    if trans_smooth > 0.0:
+        logp = torch.log_softmax(logits, dim=-1)
+        rows = torch.arange(b, device=logits.device)
+        center = -logp[rows, flat_idx]
+        w1 = (0.25, 0.5, 0.25)
+        nb = torch.zeros((b,), device=logits.device)
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    w = w1[dx + 1] * w1[dy + 1] * w1[dz + 1]
+                    off = torch.tensor([dx, dy, dz], device=logits.device)
+                    t = torch.clamp(action.trans.long() + off, 0, v - 1)
+                    nb = nb - w * logp[rows, _flat(t, v)]
+        trans_loss = (1.0 - trans_smooth) * center + trans_smooth * nb
+    else:
+        trans_loss = _ce(logits, flat_idx)
+    rg = action.rot_grip
+    rot_grip_loss = (_ce(q_rot_grip[:, 0 * r:1 * r], rg[:, 0])
+                     + _ce(q_rot_grip[:, 1 * r:2 * r], rg[:, 1])
+                     + _ce(q_rot_grip[:, 2 * r:3 * r], rg[:, 2])
+                     + _ce(q_rot_grip[:, 3 * r:], rg[:, 3]))
+    collision_loss = _ce(q_collision, action.collision[:, 0])
+    total = torch.mean(trans_loss + rot_grip_loss + collision_loss)
+    metrics = {
+        "loss_trans": torch.mean(trans_loss),
+        "loss_rot_grip": torch.mean(rot_grip_loss),
+        "loss_collision": torch.mean(collision_loss),
+    }
+    if z_loss > 0.0:
+        lse = torch.logsumexp
+        z = (torch.mean(lse(logits, dim=-1) ** 2)
+             + torch.mean(sum(lse(q_rot_grip[:, i * r:(i + 1) * r], dim=-1) ** 2
+                              for i in range(3))
+                          + lse(q_rot_grip[:, 3 * r:], dim=-1) ** 2))
+        total = total + z_loss * z
+        metrics["loss_z"] = z_loss * z
+    if q_trans_aux is not None:
+        s = v // patch_size
+        aux_loss = torch.mean(_ce(q_trans_aux, _flat(action.trans.long() // patch_size, s)))
+        total = total + lambda_aux * aux_loss
+        metrics["loss_trans_aux"] = aux_loss
+    metrics["loss"] = total
+    return total, metrics
+
+
+class PerActTrainer:
+    """The PerAct BC train step and its synthetic data pipeline on
+    `device` ("cuda" unless the caller asks for "cpu")."""
+
+    def __init__(self, cfg: PerActConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.bounds = torch.tensor(cfg.coord_bounds, dtype=torch.float32, device=self.device)
+        self.trans_aug_range = torch.tensor(cfg.trans_aug_range, dtype=torch.float32,
+                                            device=self.device)
+
+    # ------------------------------------------------------------- state
+    def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
+        """A network with weights drawn as flax draws them (from
+        `generator`), on the trainer's device, and its optimizer."""
+        net = PerceiverIO.initialized(self.cfg.model, generator).to(self.device).train()
+        return TrainState(step=0, module=net,
+                          optimizer=Optimizer(self.cfg.train.optim, net.named_parameters()))
+
+    # -------------------------------------------------------------- step
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[torch.Tensor] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer step on `batch` (all leading dim B, on the device):
+          points (B,N,3), colors (B,N,3), valid (B,N), proprio (B,7),
+          lang (B,77,512), kf_xyz (B,2,3) current + next keyframe positions,
+          rot_grip (B,4) int, collision (B,1) int.
+        draws (B, 3) in [-1, 1) are the SE(3) shifts' uniforms; without
+        them they come from `generator`. Updates state.module and
+        state.optimizer in place; returns the state and the loss metrics
+        (device tensors). The parameters' .grad hold this step's gradients
+        afterwards. The profiler sees three ranges: train_step.forward
+        (augmentation, voxelization, forward, losses), .backward and
+        .optimizer."""
+        c = self.cfg
+        if c.model.input_encoder != "conv1":
+            raise NotImplementedError(
+                "train_step: the UNet encoder's BatchNorm in train mode is not "
+                "ported yet; train with model.input_encoder=conv1")
+        v = c.model.voxel_size
+        with record_function("train_step.forward"):
+            points = batch["points"]
+            if c.use_se3_aug:
+                if draws is None:
+                    gen_dev = generator.device if generator is not None else "cpu"
+                    draws = torch.rand((points.shape[0], 3), generator=generator,
+                                       device=gen_dev) * 2.0 - 1.0
+                aug = apply_se3_augmentation(points, batch["kf_xyz"], self.bounds,
+                                             self.trans_aug_range, v,
+                                             symmetric_clamp=c.se3_symmetric_clamp, u=draws)
+                points = aug.pcd
+                action_trans = aug.action_trans[:, 1]   # next keyframe
+                proprio_trans = aug.action_trans[:, 0]  # current keyframe
+            else:
+                idx = point_to_voxel_index(batch["kf_xyz"], v, self.bounds)
+                action_trans, proprio_trans = idx[:, 1], idx[:, 0]
+            proprio = torch.cat([proprio_trans.float(), batch["proprio"][:, 3:]], dim=-1)
+
+            vox = voxelize(points, batch["colors"], self.bounds, c.voxelizer,
+                           valid=batch["valid"])
+            net = state.module
+            net.zero_grad(set_to_none=True)
+            out = net(vox, proprio, batch["lang"])
+            action = DiscreteAction(trans=action_trans, rot_grip=batch["rot_grip"],
+                                    collision=batch["collision"])
+            total, metrics = bc_losses(
+                out[0], out[1], out[2], action, v, c.model.num_rotation_classes,
+                q_trans_aux=out[-1] if c.model.aux_trans_head else None,
+                patch_size=c.model.voxel_patch_size, lambda_aux=c.lambda_aux_trans,
+                trans_smooth=c.trans_label_smooth, z_loss=c.z_loss)
+        with record_function("train_step.backward"):
+            total.backward()
+        with record_function("train_step.optimizer"):
+            state.optimizer.step()
+        state.step += 1
+        return state, {k: m.detach() for k, m in metrics.items()}
+
+    # ------------------------------------------------------------ inference
+    def predict(self, state: TrainState, vox, proprio, lang):
+        with torch.no_grad():
+            return state.module(vox, proprio, lang)
+
+    # ---------------------------------------------------------------- data
+    def synthetic_data(self, batch_size: int = 1, seed: int = 0,
+                       lang_embs: Optional[np.ndarray] = None, n_tasks: int = 1,
+                       n_kitchens: int = 1) -> Iterator[Dict[str, torch.Tensor]]:
+        """Batches over synthetic keyframe demos, drawn as the JAX package
+        draws them (the same numpy draws, so the same batches). Each
+        kitchen's padded cloud is put on the device once: the per-step
+        clouds come from this small set, and uploading 220000 points every
+        step would dominate the host loop."""
+        c = self.cfg
+        dev = self.device
+        rng = np.random.default_rng(seed)
+        cpu_bounds = self.bounds.cpu()
+        combos = []
+        for kitchen in range(n_kitchens):
+            scene = make_synthetic_scene(seed=seed + 101 * kitchen)
+            cloud = tuple(torch.as_tensor(a).to(dev) for a in pad_point_cloud(
+                PointCloudSample(scene.points, scene.colors), c.voxelizer.max_num_coords))
+            for task in range(n_tasks):
+                demo = make_synthetic_demo(scene, seed=seed + 7 * task)
+                le = (lang_embs if lang_embs is not None else
+                      np.random.default_rng(1000 + task).standard_normal(
+                          (c.model.lang_max_seq_len, c.model.lang_emb_dim)
+                      ).astype(np.float32))
+                nk = demo.num_keyframes
+                disc = discretize_action(
+                    torch.as_tensor(demo.xyz), torch.as_tensor(demo.rotation),
+                    torch.as_tensor(demo.gripper_open), torch.ones((nk,)),
+                    cpu_bounds, c.model.voxel_size, c.rotation_resolution)
+                combos.append((cloud, demo, le, disc.rot_grip.numpy(),
+                               disc.collision.numpy()))
+        keys = ("points", "colors", "valid", "proprio", "lang", "kf_xyz", "rot_grip",
+                "collision")
+        while True:
+            out = {k: [] for k in keys}
+            for _ in range(batch_size):
+                cloud, demo, le, rg_all, coll_all = combos[int(rng.integers(0, len(combos)))]
+                i = int(rng.integers(0, demo.num_keyframes - 1))
+                for k, a in zip(("points", "colors", "valid"), cloud):
+                    out[k].append(a)
+                out["proprio"].append(torch.as_tensor(np.concatenate(
+                    [np.zeros(3, np.float32), np.asarray(rg_all[i], np.float32)])))
+                out["lang"].append(torch.as_tensor(le))
+                out["kf_xyz"].append(torch.as_tensor(np.stack([demo.xyz[i],
+                                                               demo.xyz[i + 1]])))
+                out["rot_grip"].append(torch.as_tensor(rg_all[i + 1]))
+                out["collision"].append(torch.as_tensor(coll_all[i + 1]))
+            yield {k: torch.stack(v).to(dev) for k, v in out.items()}
+
+    def make_trainer(self, data: Optional[Iterator] = None) -> Trainer:
+        return Trainer(self.cfg.train, self.train_step, data or self.synthetic_data(),
+                       self.init_state)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> TrainState:
+    """PerAct BC training on the bundled synthetic scene (the counterpart of
+    scripts/train_peract.py without --data-root). Configs are JSON (YAML
+    where PyYAML is installed) with dot-path overrides."""
+    from real_robot_nerf_actor_tpu_torch.utils.config import load_config
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--config", default=None, help="JSON/YAML PerActConfig")
+    ap.add_argument("-o", "--override", action="append", default=[],
+                    help="dot-path config overrides, e.g. train.optim.lr=3e-4")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = load_config(PerActConfig, args.config, args.override)
+    tcfg = cfg.train
+    if args.steps is not None:
+        tcfg = dataclasses.replace(tcfg, num_steps=args.steps)
+    tcfg = dataclasses.replace(tcfg, ckpt_dir=args.ckpt_dir or tcfg.ckpt_dir,
+                               log_dir=args.log_dir or tcfg.log_dir)
+    cfg = dataclasses.replace(cfg, train=tcfg)
+    tr = PerActTrainer(cfg, device=args.device)
+    trainer = tr.make_trainer(tr.synthetic_data(batch_size=args.batch_size))
+    return trainer.run(resume=not args.no_resume)
+
+
+if __name__ == "__main__":
+    main()

@@ -145,6 +145,20 @@ def test_conv3d_k3_gradient_reaches_an_fp32_weight_through_the_cast(plain_launch
     _close(bt.grad, _jax_db(g, "bfloat16"), "float32")
 
 
+def test_conv3d_k3_vjp_gives_a_contiguous_dx():
+    """The VJP hands dx back as a contiguous NDHWC tensor (every operand
+    of its one convolution_backward channels-last), and dk in the kernel's
+    (3, 3, 3, Cin, Cout) layout and dtype."""
+    x = torch.from_numpy(_rand((1, 5, 6, 7, 16), 0)).to(torch.bfloat16)
+    w = torch.from_numpy(_rand((3, 3, 3, 16, 8), 1))
+    g = torch.from_numpy(_rand((1, 5, 6, 7, 8), 2))
+    dx, dk, db = conv3d_cuda.conv3d_k3_vjp(x, w, g)
+    assert dx.shape == x.shape and dx.dtype == x.dtype and dx.is_contiguous()
+    assert dk.shape == w.shape and dk.dtype == w.dtype
+    assert db.shape == (8,) and db.dtype == torch.float32
+    assert conv3d_cuda.conv3d_k3_vjp(x, w, g, (False, True, False))[0::2] == (None, None)
+
+
 def test_conv3d_k3_cuda_branch_is_tracked(monkeypatch):
     """A non-CPU tensor takes the Function: its output carries the
     Function's grad_fn (before, the raw launch returned an untracked
@@ -277,3 +291,17 @@ def test_policy_attention_refuses_grad_on_the_kernel_path(monkeypatch):
     attn = perceiver.MHAttention(16, 16, 2, 64, 16, torch.float32, use_flash=True).to("meta")
     with pytest.raises(RuntimeError, match="use_flash_attention"):
         attn(torch.empty((1, 8, 16), device="meta"))
+
+
+def test_train_step_tool_loads_another_trees_vjp():
+    """tools/train_step.py --against DIR takes conv3d_k3_vjp from the
+    package under DIR; from this tree it is the same function's arithmetic."""
+    import pathlib
+    from real_robot_nerf_actor_tpu_torch.tools.train_step import load_vjp
+    vjp = load_vjp(pathlib.Path(__file__).resolve().parent.parent)
+    assert vjp is not conv3d_cuda.conv3d_k3_vjp
+    x = torch.from_numpy(_rand((1, 4, 5, 6, 8), 0))
+    w = torch.from_numpy(_rand((3, 3, 3, 8, 4), 1))
+    g = torch.from_numpy(_rand((1, 4, 5, 6, 4), 2))
+    for a, b in zip(vjp(x, w, g), conv3d_cuda.conv3d_k3_vjp(x, w, g)):
+        assert torch.equal(a, b)

@@ -148,3 +148,52 @@ def test_chip_smoke_renders_serve_yaml():
     spec.loader.exec_module(cs)
     ours = RendererConfig(field=NerfFieldConfig(**cs.SERVE_FIELD), **cs.SERVE_RENDERER)
     assert ours == load_config(NerfActConfig, str(REPO / "configs/serve.yaml")).renderer
+
+
+def test_training_modules_import_without_jax():
+    """The training slice's modules import in a process where jax, flax,
+    optax and the JAX package cannot be imported."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import real_robot_nerf_actor_tpu_torch.ops.se3_aug\n"
+        "import real_robot_nerf_actor_tpu_torch.utils.logger\n"
+        "import real_robot_nerf_actor_tpu_torch.train.trainer\n"
+        "import real_robot_nerf_actor_tpu_torch.train.peract\n"
+        "import real_robot_nerf_actor_tpu_torch.convert\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_trainer_refuses_missing_cuda(monkeypatch):
+    """PerActTrainer (and so its train_step) and the training entry point
+    default to CUDA and raise without it."""
+    from real_robot_nerf_actor_tpu_torch.train import peract
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        peract.PerActTrainer(peract.PerActConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        peract.main(["--steps", "1"])
+
+
+def test_chip_smoke_trains_peract_yaml():
+    """chip_smoke.py's train config (the card machine has no PyYAML) is
+    configs/peract.yaml as written."""
+    yaml = pytest.importorskip("yaml")
+    import importlib.util
+    from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict, load_config
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert yaml.safe_load((REPO / "configs/peract.yaml").read_text()) == cs.PERACT
+    assert from_dict(PerActConfig, cs.PERACT) == load_config(
+        PerActConfig, str(REPO / "configs/peract.yaml"))

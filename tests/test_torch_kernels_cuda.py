@@ -312,6 +312,7 @@ def test_conv3d_k3_gradients(cuda, monkeypatch, dtype, shape, cin, cout):
         same = conv3d_k3_vjp(x, w, g)
     for a, c in zip(got, same):
         assert torch.equal(a, c)
+    assert x.grad.is_contiguous()     # NDHWC from cuDNN, not a strided view
     xp, wp, bp = (t.detach().clone().requires_grad_() for t in (x, w, b))
     conv3d_k3_plain(xp, wp, bp).backward(g)
     for a, c in zip(got, (xp.grad, wp.grad, bp.grad)):
@@ -421,6 +422,84 @@ def test_policy_backward_through_the_conv_kernel(cuda, monkeypatch):
                                       torch.Generator().manual_seed(0)).to(cuda)
         with pytest.raises(RuntimeError, match=name):
             net(vox, proprio, lang)
+
+
+def test_conv3d_k3_function_finite_differences(cuda):
+    """Conv3dK3's backward against central differences of the kernel's own
+    forward, fp32, along random directions of x, the weight and the bias
+    (gradcheck's test, one direction at a time). The conv is bilinear, so
+    the central difference has no truncation error: what is left is fp32
+    rounding of the sums, held to 1e-4 relative."""
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import Conv3dK3
+    x = _randn((1, 5, 6, 7, 16), 0).to(cuda)
+    w = _randn((3, 3, 3, 16, 8), 1, 0.1).to(cuda)
+    b = _randn((8,), 2).to(cuda)
+    r = _randn((1, 5, 6, 7, 8), 3).to(cuda)
+    args = [t.clone().requires_grad_() for t in (x, w, b)]
+    (Conv3dK3.apply(*args) * r).sum().backward()
+
+    def f(*a):
+        with torch.no_grad():
+            return (Conv3dK3.apply(*a).double() * r.double()).sum().item()
+
+    for i, t in enumerate((x, w, b)):
+        for seed in (10, 11):
+            d = _randn(tuple(t.shape), seed + 10 * i).to(cuda)
+            eps = 0.5
+            plus = [a.detach() + (eps * d if j == i else 0) for j, a in enumerate(args)]
+            minus = [a.detach() - (eps * d if j == i else 0) for j, a in enumerate(args)]
+            numeric = (f(*plus) - f(*minus)) / (2 * eps)
+            analytic = (args[i].grad.double() * d.double()).sum().item()
+            assert abs(numeric - analytic) <= 1e-4 * max(abs(analytic), 1.0), (i, numeric,
+                                                                               analytic)
+
+
+def test_tiny_train_step_kernel_matches_plain(cuda):
+    """The port's PerAct train step at the tiny test size (depth 1, V 10,
+    32 x 64 latents, 2000 points), fp32, from the same weights, batch and
+    SE(3) draws: conv_backend "pallas" (the k3 kernel forward and its VJP)
+    against "conv2d" (cuDNN). Each launches as it should; the loss metrics
+    agree to 1e-5 relative and every gradient to 1e-4 of its tensor's
+    largest |g| (the trans decoder's bias, whose gradient is zero, to
+    1e-5 of the largest gradient of all)."""
+    from real_robot_nerf_actor_tpu_torch.convert import final_conv_as_plain
+    from real_robot_nerf_actor_tpu_torch.ops import VoxelizerSpec
+    from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig, PerActTrainer
+    model = dict(depth=1, voxel_size=10, num_latents=32, latent_dim=64, im_channels=8,
+                 cross_dim_head=16, latent_dim_head=16, latent_heads=2, final_dim=8,
+                 lang_emb_dim=16, lang_max_seq_len=4)
+    runs = {}
+    for conv in ("pallas", "conv2d"):
+        cfg = PerActConfig(model=PerceiverConfig(**model, conv_backend=conv),
+                           voxelizer=VoxelizerSpec(voxel_size=10, max_num_coords=2000))
+        tr = PerActTrainer(cfg, device=cuda)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        if conv == "conv2d":
+            state.module.load_state_dict(final_conv_as_plain(runs["pallas"]["sd"]))
+        sd0 = {k: v.clone() for k, v in state.module.state_dict().items()}
+        batch = next(tr.synthetic_data(batch_size=2, seed=1))
+        launches = conv3d_k3.launches
+        state, metrics = tr.train_step(state, batch, draws=torch.tensor(
+            [[0.3, -0.7, 0.1], [-0.2, 0.9, -0.5]], device=cuda))
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in state.module.named_parameters()}
+        if conv == "conv2d":
+            grads["final.pallas_kernel"] = grads.pop("final.Conv_0.weight").permute(2, 3, 4, 1, 0)
+            grads["final.pallas_bias"] = grads.pop("final.Conv_0.bias")
+        runs[conv] = dict(sd=sd0, launches=conv3d_k3.launches - launches, grads=grads,
+                          m={k: v.item() for k, v in metrics.items()})
+    assert (runs["pallas"]["launches"], runs["conv2d"]["launches"]) == (1, 0)
+    got, want = runs["pallas"], runs["conv2d"]
+    for k, w in want["m"].items():
+        assert abs(got["m"][k] - w) <= 1e-5 * abs(w), k
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    assert got["grads"]["final.pallas_kernel"].abs().max() > 0
+    for n, w in want["grads"].items():
+        if n == "trans_decoder.bias":
+            assert max(w.abs().max().item(), got["grads"][n].abs().max().item()) <= 1e-5 * top
+            continue
+        torch.testing.assert_close(got["grads"][n], w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item(), msg=lambda m: f"{n}: {m}")
 
 
 # ------------------------------------------------- serving renderer kernels
