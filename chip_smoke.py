@@ -74,6 +74,15 @@ Phases, each reported on its own line:
      gradients against the plain path's within the plain path's own
      bf16-vs-fp32 gap, two planted faults that must fail that check, and
      flash attention and the stats kernel refusing grad in a train step.
+  7. nerfact: the NeRF-Actor joint train step of configs/nerfact.yaml at
+     full width (see nerfact_phase) in three settings stepping in turns:
+     (a) the file as written, (b) the kernels (conv3d_k3 and corner_lerp
+     with their VJPs on the corner-expanded grid), (c) (b)'s path with the
+     plain versions. Step p50, device time split into forward, render,
+     backward and optimizer, device events, peak memory, losses, launch
+     counts; (b)'s first-step gradients against (c)'s within (c)'s own
+     bf16-vs-fp32 gap, and two planted lerp faults that must fail that
+     check.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -118,6 +127,28 @@ PERACT = dict(model=dict(depth=6, voxel_size=100, initial_dim=10, num_latents=20
                          optim=dict(lr=1.0e-4, weight_decay=1.0e-6)))
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
+# the nerfact phase: configs/nerfact.yaml as written (a CPU test holds the
+# two equal)
+NERFACT = dict(
+    peract=dict(model=dict(depth=6, voxel_size=100, initial_dim=10, num_latents=2048,
+                           latent_dim=512, input_encoder="unet", return_voxel_feat=True,
+                           compute_dtype="bfloat16"),
+                voxelizer=dict(voxel_size=100, feature_size=3, max_num_coords=220000),
+                coord_bounds=[-0.1, -0.3, -0.2, 0.8, 0.7, 0.7], se3_symmetric_clamp=True,
+                train=dict(num_steps=40000, ckpt_every=2000, eval_every=1000,
+                           best_key="bc_render_score",
+                           optim=dict(schedule="cosine", warmup_steps=500,
+                                      decay_steps=40000))),
+    lambda_bc=1.0, lambda_nerf=10.0,
+    renderer=dict(image_width=128, image_height=128, z_near=1.2, z_far=4.0, n_coarse=64,
+                  n_fine=32, n_fine_depth=16, ray_chunk_size=512, lambda_embed=0.01,
+                  lambda_depth=0.1,
+                  field=dict(d_latent=64, d_embed=512, d_hidden=512, n_blocks=5,
+                             combine_layer=3, compute_dtype="bfloat16",
+                             coord_bounds=[-0.1, -0.3, -0.2, 0.8, 0.7, 0.7],
+                             mask_outside=True)))
+NERFACT_WARMUP = 3
+NERFACT_STEPS = 10
 # the trans decoder's bias shifts every trans logit alike, which the softmax
 # CE does not see: its gradient is zero, and what a step computes for it is
 # rounding
@@ -960,6 +991,302 @@ def train_phase(torch, dev, card):
         fail(f"train: a kernel without a backward did not refuse grad: {refused}")
 
 
+def nerfact_phase(torch, dev, card):
+    """Phase 7: the NeRF-Actor joint train step of configs/nerfact.yaml at
+    full width (UNet encoder with BatchNorm in train mode, bf16 policy,
+    depth 6, 100^3 x 10 voxels, 2048 x 512 latents, 220000 padded points,
+    batch 1; 512 rays of 64 + 32 samples (16 of them around the coarse
+    depth) on a 128 x 128 view, field 64 -> 5 x 512 bf16 with
+    mask_outside; lambda_nerf 10, lambda_embed 0.01; AdamW on the cosine
+    schedule with 500 warmup steps), weights random from a seeded
+    generator, one synthetic batch with its view and gt_embed, fixed SE(3)
+    and render draws. Settings, from the same weights, NERFACT_WARMUP
+    untimed and NERFACT_STEPS timed steps each, in turns:
+      a: the file as written: conv2d, fused_gather "auto" (8 gathers a
+         sample at 49152 samples), no kernel;
+      b: kernels: conv_backend "pallas" (conv3d_k3 forward and VJP),
+         fused_gather true and FUSED_LERP_BACKEND "pallas" (corner_lerp
+         and its VJP, one a pass);
+      c: b's corner-expanded path with the kernels' plain versions:
+         conv2d with final_conv_as_plain weights, and the lerp's plain
+         version (lerp_cuda.corner_lerp_plain, autograd as its backward)
+         in place of the kernel on the same "pallas" route. The "xla"
+         route's nested lerp rounds the weights and every lerp stage to
+         bf16, so its field gradients carry other bf16 noise than the
+         kernel's one rounding of an fp32 sum: on an H100 b stood up to
+         2.07x c's own bf16-vs-fp32 gap from c on that route, and as far
+         from the fp32 step.
+    Fails unless b launches the conv forward (wgmma) and its VJP once a
+    step and the lerp and its VJP twice, a and c neither; loss_total falls
+    and every BatchNorm running statistic moved after step 1 in every
+    setting; b's first-step gradients, tensor by tensor and with the
+    rendering loss's gradient of d0 as one more tensor, lie within c's own
+    bf16-vs-fp32 gap (at least 2^-7, two bf16 ulps: see the tolerance
+    below), and two planted faults each fail that check: the lerp's d_rows
+    zeroed, and corner weights 0 and 1 swapped in the kernel's forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch.convert import final_conv_as_plain
+    from real_robot_nerf_actor_tpu_torch.ops import grid_sample, lerp_cuda
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig, NerfActTrainer
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict
+
+    base = from_dict(NerfActConfig, NERFACT)
+
+    def setting(name, fp32=False):
+        """(config, FUSED_LERP_BACKEND, the lerp it calls) of setting a, b
+        or c."""
+        conv, expand, lerp, fn = {
+            "a": ("conv2d", "auto", "xla", corner_lerp),
+            "b": ("pallas", True, "pallas", corner_lerp),
+            "c": ("conv2d", True, "pallas", lerp_cuda.corner_lerp_plain)}[name]
+        model = dataclasses.replace(base.peract.model, conv_backend=conv)
+        field = base.renderer.field
+        if fp32:
+            model = dataclasses.replace(model, compute_dtype="float32")
+            field = dataclasses.replace(field, compute_dtype="float32")
+        return dataclasses.replace(
+            base, peract=dataclasses.replace(base.peract, model=model),
+            renderer=dataclasses.replace(base.renderer, fused_gather=expand,
+                                         field=field)), lerp, fn
+
+    t0 = time.perf_counter()
+    cfg_b = setting("b")[0]
+    tr_b = NerfActTrainer(cfg_b, device=dev)
+    sd_b = {k: v.detach().clone() for k, v in tr_b.init_state(
+        torch.Generator().manual_seed(0)).module.state_dict().items()}
+    sd_plain = final_conv_as_plain(sd_b, "policy.")
+    batch = next(tr_b.synthetic_data(batch_size=1, seed=0))
+    g = torch.Generator().manual_seed(1)
+    r, rc = cfg_b.renderer.ray_chunk_size, cfg_b.renderer
+    nf = rc.n_fine - rc.n_fine_depth
+    draws = dict(draws=torch.tensor([[0.37, -0.61, 0.18]], device=dev),
+                 ray_idx=torch.randint(0, rc.image_height * rc.image_width, (r,),
+                                       generator=g).to(dev),
+                 render_draws={k: v.to(dev) for k, v in (
+                     ("coarse_u", torch.rand((r, rc.n_coarse), generator=g)),
+                     ("fine_u", torch.rand((r, nf), generator=g)),
+                     ("fine_jitter", torch.rand((r, nf), generator=g)),
+                     ("fine_depth_eps", torch.randn((r, rc.n_fine_depth), generator=g)))})
+    setup_s = time.perf_counter() - t0
+
+    def fresh(name, fp32=False):
+        cfg, lerp, fn = setting(name, fp32)
+        tr = NerfActTrainer(cfg, device=dev)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        state.module.load_state_dict(sd_b if name == "b" else sd_plain)
+        # the rendering loss's own gradient of d0: the slice handed to it
+        inner = tr.renderer.rendering_loss
+
+        def rendering_loss(voxel_feat, *a, **k):
+            voxel_feat.retain_grad()
+            tr.voxel_feat = voxel_feat
+            return inner(voxel_feat, *a, **k)
+
+        tr.renderer.rendering_loss = rendering_loss
+        return dict(tr=tr, state=state, lerp=lerp, lerp_fn=fn)
+
+    def route(run):
+        """The run's lerp route: the expanded path calls
+        lerp_cuda.corner_lerp, which c replaces by its plain version."""
+        grid_sample.FUSED_LERP_BACKEND = run["lerp"]
+        lerp_cuda.corner_lerp = run["lerp_fn"]
+
+    def step(run):
+        route(run)
+        return run["tr"].train_step(run["state"], batch, **draws)[1]
+
+    def grads_of(run):
+        """The step's gradients by parameter (the plain conv's in the
+        kernel's layout and names), and the rendering loss's gradient of
+        d0 as `render.d_voxel_feat`."""
+        grads = {n: p.grad.detach().float().clone()
+                 for n, p in run["state"].module.named_parameters()}
+        if "policy.final.Conv_0.weight" in grads:
+            grads["policy.final.pallas_kernel"] = grads.pop(
+                "policy.final.Conv_0.weight").permute(2, 3, 4, 1, 0)
+            grads["policy.final.pallas_bias"] = grads.pop("policy.final.Conv_0.bias")
+        grads["render.d_voxel_feat"] = run["tr"].voxel_feat.grad.float().clone()
+        return grads
+
+    def one_step(name, fp32=False):
+        run = fresh(name, fp32)
+        m = step(run)
+        return grads_of(run), m["loss_total"].item()
+
+    def profiled(run):
+        route(run)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run["tr"].train_step(run["state"], batch, **draws)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        rows = device_rows(torch, prof)
+        device_ms = sum(x[1] for x in rows)
+        split = {k: range_device_ms(torch, prof, f"train_step.{k}")
+                 for k in ("forward", "render", "optimizer")}
+        # autograd runs the backward on its own thread, outside the range
+        split["backward"] = device_ms - split["forward"] - split["render"] - split["optimizer"]
+        lerp_rows = [x for x in rows if "lerp_vector" in x[0] or "lerp_scalar" in x[0]]
+        return dict(step_wall_ms=wall_ms, device_ms=device_ms,
+                    device_busy_share=device_ms / wall_ms,
+                    device_events=sum(x[2] for x in rows), split_device_ms=split,
+                    corner_lerp_device_ms=[{"name": n[:60], "ms": ms, "count": c}
+                                           for n, ms, c in lerp_rows],
+                    top_kernels=[{"name": n[:80], "ms": ms, "count": c}
+                                 for n, ms, c in rows[:12]])
+
+    counters = (("conv3d_k3", conv3d_k3, "launches"), ("conv3d_k3_wgmma", conv3d_k3,
+                                                       "wgmma_launches"),
+                ("conv3d_k3_vjp", conv3d_k3, "vjp_calls"),
+                ("corner_lerp", corner_lerp, "cuda_launches"),
+                ("corner_lerp_vjp", corner_lerp, "vjp_calls"))
+    runs = {name: dict(fresh(name), times=[], losses=[], peak_gb=0.0,
+                       launches=dict.fromkeys((c[0] for c in counters), 0))
+            for name in "abc"}
+    bn_before = {n: b.clone() for n, b in runs["a"]["state"].module.named_buffers()}
+    torch.cuda.synchronize()
+    live_gb = torch.cuda.memory_allocated() / 2 ** 30
+    n = NERFACT_WARMUP + NERFACT_STEPS
+    for i in range(n):
+        for name in ("abc" if i % 2 == 0 else "cba"):
+            run = runs[name]
+            torch.cuda.reset_peak_memory_stats()
+            for _, obj, attr in counters:
+                setattr(obj, attr, 0)
+            t = time.perf_counter()
+            m = step(run)
+            torch.cuda.synchronize()
+            if i >= NERFACT_WARMUP:
+                run["times"].append((time.perf_counter() - t) * 1e3)
+            for key, obj, attr in counters:
+                run["launches"][key] += getattr(obj, attr)
+            run["peak_gb"] = max(run["peak_gb"], torch.cuda.max_memory_allocated() / 2 ** 30)
+            run["losses"].append(m["loss_total"].item())
+            if i == 0:
+                run["grads"] = grads_of(run)
+                run["metrics"] = {k: v.item() for k, v in m.items()}
+                run["bn_moved"] = all(
+                    not torch.equal(b, bn_before[k])
+                    for k, b in run["state"].module.named_buffers())
+    per_step = {"a": 0, "b": 1, "c": 0}
+    for name, run in runs.items():
+        times, losses, launches = run["times"], run["losses"], run["launches"]
+        want = {k: n * per_step[name] * (2 if k.startswith("corner_lerp") else 1)
+                for k in launches}
+        emit("nerfact", setting=name, config=dict(
+                 conv_backend=run["tr"].cfg.model.conv_backend,
+                 fused_gather=run["tr"].jcfg.renderer.fused_gather,
+                 fused_lerp_backend=run["lerp"], lerp=run["lerp_fn"].__name__),
+             warmup=NERFACT_WARMUP, steps=NERFACT_STEPS, p50_ms=statistics.median(times),
+             step_ms=times, loss_first=losses[0], loss_last=losses[-1], losses=losses,
+             first_step_metrics=run["metrics"], bn_stats_moved_after_step_1=run["bn_moved"],
+             launches=launches, launches_per_step={k: v / n for k, v in launches.items()},
+             peak_mem_gb=run["peak_gb"], live_before_gb=live_gb, setup_s=setup_s,
+             **profiled(run), card=card)
+        if launches != want:
+            fail(f"nerfact {name}: launches {launches} over {n} steps, want {want}")
+        if not all(map(math.isfinite, losses)):
+            fail(f"nerfact {name}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"nerfact {name}: loss_total on the fixed batch did not fall: {losses}")
+        if not run["bn_moved"]:
+            fail(f"nerfact {name}: a BatchNorm running statistic did not move in step 1")
+    grid_sample.FUSED_LERP_BACKEND, lerp_cuda.corner_lerp = "xla", corner_lerp
+
+    # the lerp and its VJP alone at this path's shapes (the coarse pass's
+    # 512 x 64 samples, the fine pass's 512 x 32), bf16 rows of the
+    # expanded 64-channel grid; bound: the rows (1024 B), w (32 B) and the
+    # output (128 B) of a row once at 3.35 TB/s
+    lerp_gen = torch.Generator(device=dev).manual_seed(7)
+    for m_rows in (r * rc.n_coarse, r * rc.n_fine):
+        rows = torch.randn((m_rows, 512), generator=lerp_gen, device=dev).to(torch.bfloat16)
+        w8 = torch.rand((8, m_rows), generator=lerp_gen, device=dev)
+        g_out = torch.randn((m_rows, 64), generator=lerp_gen, device=dev).to(torch.bfloat16)
+        # the library call of the render phase's lerp line: one batched matmul
+        rows3, w_lib = rows.view(m_rows, 8, -1), w8.T.unsqueeze(1).to(torch.bfloat16).contiguous()
+        with torch.no_grad():
+            err = (corner_lerp(rows, w8).float()
+                   - lerp_cuda.corner_lerp_plain(rows, w8).float()).abs().max().item()
+            b_ms, b_by = bound(15.0 * m_rows * 64, m_rows * (1024 + 32 + 128), "float32")
+            emit("nerfact_lerp", shape=[m_rows, 512], dtype="bfloat16", max_abs_err=err,
+                 ms=median_ms(torch, lambda: corner_lerp(rows, w8), 20),
+                 device_ms=profiled_ms(torch, lambda: corner_lerp(rows, w8), 20),
+                 plain_ms=median_ms(torch, lambda: lerp_cuda.corner_lerp_plain(rows, w8), 20),
+                 library_ms=median_ms(torch, lambda: torch.bmm(w_lib, rows3), 20),
+                 vjp_ms=median_ms(torch, lambda: lerp_cuda.corner_lerp_vjp(rows, w8, g_out), 20),
+                 vjp_device_ms=profiled_ms(
+                     torch, lambda: lerp_cuda.corner_lerp_vjp(rows, w8, g_out), 20),
+                 bound_ms=b_ms, bound_by=b_by, card=card)
+    del rows, w8, g_out, rows3, w_lib
+
+    grads = {name: runs[name]["grads"] for name in "bc"}
+    loss_bf16 = runs["c"]["losses"][0]
+    for run in runs.values():
+        del run["tr"], run["state"]
+    del runs
+
+    def gaps(got, want):
+        return {k: ((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                for k, w in want.items() if k != "policy." + INVARIANT}
+
+    # the tolerance: what bf16 compute itself moves each gradient on c's
+    # path, against the same step in fp32, and at least two bf16 ulps of
+    # the tensor's scale: b and c round `final`'s output each once (the
+    # kernel, cuDNN), so one voxel can be two ulps apart, and a gradient
+    # that one voxel dominates (trans_decoder's weight: the label voxel)
+    # moves by as much (1.045 ulps in one H100 run, where c's own gap was
+    # under one)
+    g_fp32, loss_fp32 = one_step("c", fp32=True)
+    tol = {k: max(v, 2 ** -7) for k, v in gaps(grads["c"], g_fp32).items()}
+    # b's own gap to the fp32 step, beside c's: how far each bf16 path lies
+    b_fp32 = gaps(grads["b"], g_fp32)
+    b_fp32_worst = max(b_fp32, key=lambda k: b_fp32[k] / tol[k])
+    del g_fp32
+
+    def check(got):
+        """(worst gap / tolerance, its tensor, the gaps of the render
+        gradient of d0 and of the field's first layer)."""
+        gp = gaps(got, grads["c"])
+        worst = max(gp, key=lambda k: gp[k] / tol[k])
+        return gp[worst] / tol[worst], worst, {
+            k: gp[k] for k in ("render.d_voxel_feat", "nerf.mlp_coarse.lin_z_0.weight",
+                               "policy.final.pallas_kernel")}
+
+    ratio, worst, named_gaps = check(grads["b"])
+    vjp, launch = lerp_cuda.corner_lerp_vjp, lerp_cuda._launch
+    faults = {}
+    try:
+        lerp_cuda.corner_lerp_vjp = lambda *a: (lambda d_rows, d_w: (
+            torch.zeros_like(d_rows), d_w))(*vjp(*a))
+        faults["d_rows_zeroed"] = check(one_step("b")[0])
+        lerp_cuda.corner_lerp_vjp = vjp
+        swap = [1, 0, 2, 3, 4, 5, 6, 7]
+        lerp_cuda._launch = lambda rows, w: launch(rows, w[swap].contiguous())
+        faults["corners_0_1_swapped"] = check(one_step("b")[0])
+    finally:
+        lerp_cuda.corner_lerp_vjp, lerp_cuda._launch = vjp, launch
+        grid_sample.FUSED_LERP_BACKEND, lerp_cuda.corner_lerp = "xla", corner_lerp
+    emit("nerfact_grad", tensors=len(tol), worst_gap_over_tol=ratio, worst_tensor=worst,
+         worst_gap=ratio * tol[worst], worst_tol=tol[worst], gaps=named_gaps,
+         plain_bf16_vs_fp32_gap={"max": max(tol.values()),
+                                 "median": statistics.median(tol.values()),
+                                 "named": {k: tol[k] for k in named_gaps}},
+         kernel_vs_fp32={"worst_gap_over_tol": b_fp32[b_fp32_worst] / tol[b_fp32_worst],
+                         "worst_tensor": b_fp32_worst,
+                         "named": {k: b_fp32[k] for k in named_gaps}},
+         loss_fp32=loss_fp32, loss_bf16=loss_bf16,
+         planted_faults={k: {"worst_gap_over_tol": x, "worst_tensor": t, "gaps": f}
+                         for k, (x, t, f) in faults.items()}, card=card)
+    if not ratio <= 1.0:
+        fail(f"nerfact: the kernel path's gradient of {worst} is {ratio} x its tolerance")
+    for k, (x, _, _) in faults.items():
+        if not x > 1.0:
+            fail(f"nerfact: the gradient check does not see the planted fault {k} ({x})")
+
+
 def mlp_err(got, want):
     """(largest gap, tolerance MLP_TOL of the largest |output|) over out and
     hidden, and the share of outputs more than one bf16 ulp of that scale
@@ -1354,7 +1681,10 @@ def main():
     # ------------------------------------------------------------ 6. train
     train_phase(torch, dev, card)
 
-    # ------------------------------------------------------- 7. summary
+    # ---------------------------------------------------------- 7. nerfact
+    nerfact_phase(torch, dev, card)
+
+    # ------------------------------------------------------- 8. summary
     info = {
         "flash_attention": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/flash_attention.cu",
                             "real_robot_nerf_actor_tpu/ops/attention_pallas.py:70"),

@@ -23,11 +23,14 @@ Inputs are numpy arrays (or anything `np.asarray` takes); no JAX needed.
 
 `load_optax_state` carries a JAX optimizer state across as well, so that a
 JAX run resumes in the port on the same trajectory: the Adam moments are
-elementwise, so they take the same leaf mapping as the parameters.
+elementwise, so they take the same leaf mapping as the parameters. The
+NeRF-Actor joint state (params `{"policy", "nerf"}`) maps by
+`joint_to_state_dict`, and its optax state by `load_optax_state` as it is:
+the moments' tree is the joint params tree.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -71,14 +74,27 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def final_conv_as_plain(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def joint_to_state_dict(params: Mapping[str, Any],
+                        extra: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """The NeRF-Actor joint state of the JAX package (params
+    {"policy": ..., "nerf": ...}, extra {"batch_stats": the policy's}) ->
+    the state_dict of the port's `nn.ModuleDict(policy=..., nerf=...)`:
+    `policy.*` and `nerf.*`, the BatchNorm statistics under `policy.`."""
+    stats = dict(extra or {}).get("batch_stats", {})
+    return flax_to_state_dict({"params": params, "batch_stats": {"policy": stats}})
+
+
+def final_conv_as_plain(state_dict: Mapping[str, torch.Tensor],
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
     """A PerceiverIO state_dict of `conv_backend: pallas` for the same net
     with the plain conv: `final.pallas_kernel` (3, 3, 3, Cin, Cout) becomes
     `final.Conv_0.weight` (Cout, Cin, 3, 3, 3), `final.pallas_bias`
-    `final.Conv_0.bias`."""
+    `final.Conv_0.bias`. prefix: the policy's, in a larger state_dict
+    (`"policy."` in the NeRF-Actor joint one)."""
     sd = dict(state_dict)
-    sd["final.Conv_0.weight"] = sd.pop("final.pallas_kernel").permute(4, 3, 0, 1, 2)
-    sd["final.Conv_0.bias"] = sd.pop("final.pallas_bias")
+    f = prefix + "final."
+    sd[f + "Conv_0.weight"] = sd.pop(f + "pallas_kernel").permute(4, 3, 0, 1, 2)
+    sd[f + "Conv_0.bias"] = sd.pop(f + "pallas_bias")
     return sd
 
 

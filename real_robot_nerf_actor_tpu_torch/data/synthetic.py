@@ -1,5 +1,6 @@
 """Synthetic scene + keyframe demo (counterpart of the JAX package's
-`data/synthetic.py`, the parts the act loop and the serving render use).
+`data/synthetic.py`, the parts the act loop, the serving render and the
+joint step's synthetic view use).
 
 A table plane plus a few coloured boxes inside the scene bounds, and a
 grasp-like keyframe trajectory above box 0: the same numpy draws as the JAX
@@ -123,3 +124,16 @@ def make_replay_steps(scene: SyntheticScene, demo: KeyframeDemo
                    proprio_grip=float(demo.gripper_open[k]))
         for k in range(demo.num_keyframes)
     ]
+
+
+def make_camera_arc(n_views: int, center=(0.35, 0.2, 0.1), radius: float = 2.2,
+                    height: float = 1.4) -> np.ndarray:
+    """(n_views, 4, 4) OpenGL camera poses on an arc around the scene."""
+    center = np.asarray(center, np.float32)
+    poses = []
+    for i in range(n_views):
+        ang = 2 * np.pi * i / max(n_views, 1)
+        eye = center + np.array([radius * np.cos(ang), radius * np.sin(ang),
+                                 height], np.float32)
+        poses.append(_look_at(eye, center))
+    return np.stack(poses)

@@ -16,8 +16,10 @@ The TPU lowering tricks of the JAX package (`ZDecomposedConv3D`, the
 packed conv, `ContractFirstConv3D`'s contraction order) are kept only as
 the maths they compute: every conv backend except "pallas" runs the plain
 convolution, and "pallas" runs the hand-written k3 kernel
-(`ops/conv3d_cuda.py`). BatchNorm runs on its running statistics: the
-serving path is inference only.
+(`ops/conv3d_cuda.py`). BatchNorm takes flax's `train` argument
+explicitly (not `nn.Module.training`): train=True normalises with the batch
+statistics and updates the running ones, as flax does under
+`mutable=["batch_stats"]`; the default runs on the running statistics.
 """
 from __future__ import annotations
 
@@ -184,7 +186,18 @@ class ConvTranspose3d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm over the last axis, on its running statistics."""
+    """flax nn.BatchNorm over the last axis (momentum 0.9, epsilon 1e-5).
+
+    forward(x, train=False) normalises with the running statistics.
+    forward(x, train=True) normalises with the batch's, over every axis but
+    the last, computed in fp32 as flax computes them: mean = E[x] and the
+    biased variance max(0, E[x^2] - E[x]^2), the gradient flowing through
+    both; then y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and the
+    running statistics become 0.9 * running + 0.1 * batch (flax's
+    momentum; torch's is its complement, and `F.batch_norm` would update
+    with the unbiased variance)."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -194,10 +207,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        y = F.batch_norm(x.movedim(-1, 1), self.running_mean, self.running_var,
-                         self.weight, self.bias, training=False, eps=self.eps)
-        return y.movedim(1, -1)
+    def forward(self, x, train: bool = False):
+        if not train:
+            y = F.batch_norm(x.movedim(-1, 1), self.running_mean, self.running_var,
+                             self.weight, self.bias, training=False, eps=self.eps)
+            return y.movedim(1, -1)
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 
 
 class DenseBlock(nn.Module):
@@ -358,9 +382,9 @@ class ConvBnReLU3D(nn.Module):
         self.Conv_0 = Conv3d(in_features, features, kernel_size, use_bias=False)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.Conv_0(x, stride=self.stride, padding=1)
-        return F.leaky_relu(self.BatchNorm_0(x), 0.01)
+        return F.leaky_relu(self.BatchNorm_0(x, train), 0.01)
 
 
 class DeconvBn3D(nn.Module):
@@ -374,10 +398,10 @@ class DeconvBn3D(nn.Module):
                                                use_bias=False)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x, out_size: int):
+    def forward(self, x, out_size: int, train: bool = False):
         y = self.ConvTranspose_0(x)
         y = y[:, 1:1 + out_size, 1:1 + out_size, 1:1 + out_size]
-        return F.leaky_relu(self.BatchNorm_0(y), 0.01)
+        return F.leaky_relu(self.BatchNorm_0(y, train), 0.01)
 
 
 class MultiLayer3DEncoderShallow(nn.Module):
@@ -397,14 +421,17 @@ class MultiLayer3DEncoderShallow(nn.Module):
             setattr(self, f"DeconvBn3D_{i}", DeconvBn3D(cin, cout))
         self.Conv_0 = Conv3d(ch[0], features, 1)
 
-    def forward(self, x):
-        c0 = self.ConvBnReLU3D_0(x)
-        c2 = self.ConvBnReLU3D_2(self.ConvBnReLU3D_1(c0))
-        c4 = self.ConvBnReLU3D_4(self.ConvBnReLU3D_3(c2))
-        c6 = self.ConvBnReLU3D_6(self.ConvBnReLU3D_5(c4))
-        u = c4 + self.DeconvBn3D_0(c6, c4.shape[1])
-        u = c2 + self.DeconvBn3D_1(u, c2.shape[1])
-        u = c0 + self.DeconvBn3D_2(u, c0.shape[1])
+    def forward(self, x, train: bool = False):
+        """train=True: BatchNorm on batch statistics, updating the running
+        ones in place (see BatchNorm)."""
+        cell = [getattr(self, f"ConvBnReLU3D_{i}") for i in range(7)]
+        c0 = cell[0](x, train)
+        c2 = cell[2](cell[1](c0, train), train)
+        c4 = cell[4](cell[3](c2, train), train)
+        c6 = cell[6](cell[5](c4, train), train)
+        u = c4 + self.DeconvBn3D_0(c6, c4.shape[1], train)
+        u = c2 + self.DeconvBn3D_1(u, c2.shape[1], train)
+        u = c0 + self.DeconvBn3D_2(u, c0.shape[1], train)
         return self.Conv_0(u)
 
 

@@ -236,16 +236,19 @@ class PerceiverIO(nn.Module):
             return spatial_softmax_3d_pallas(x.contiguous())
         return spatial_softmax_3d(x)
 
-    def forward(self, voxel_grid, proprio, lang_goal_embs):
+    def forward(self, voxel_grid, proprio, lang_goal_embs, train: bool = False):
         """voxel_grid (B, V, V, V, initial_dim), proprio (B, low_dim_size),
-        lang_goal_embs (B, 77, lang_emb_dim). Returns (q_trans (B,V,V,V),
-        q_rot_grip (B,3R+2), q_collision (B,2)[, voxel_feat d0]
-        [, q_trans_aux (B, s^3)])."""
+        lang_goal_embs (B, 77, lang_emb_dim). train=True runs the UNet
+        encoder's BatchNorm on batch statistics and updates its running
+        statistics in place (the JAX `train=True` under
+        `mutable=["batch_stats"]`); the default reads them. Returns
+        (q_trans (B,V,V,V), q_rot_grip (B,3R+2), q_collision (B,2)
+        [, voxel_feat d0][, q_trans_aux (B, s^3)])."""
         c = self.cfg
         b = voxel_grid.shape[0]
         s = c.spatial_size
         if c.input_encoder == "unet":
-            d0 = self.encoder_3d(voxel_grid)
+            d0 = self.encoder_3d(voxel_grid, train)
         else:
             d0 = self.input_preprocess(voxel_grid)
         feats = [self._ssm(d0), torch.amax(d0, dim=(1, 2, 3))]

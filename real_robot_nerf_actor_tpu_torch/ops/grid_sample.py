@@ -1,9 +1,15 @@
 """Trilinear voxel-grid sampling (torch grid_sample align_corners=True
 semantics) on channel-last grids; counterpart of the JAX package's
-`ops/grid_sample.py`, forward only.
+`ops/grid_sample.py`.
 
 coords[..., 0] indexes the last spatial axis (W), coords[..., 2] the first
 (D), as in torch.nn.functional.grid_sample for 5-D inputs.
+
+Gradients reach the grid (not the coordinates: the field detaches them, as
+JAX stops their gradient) through autograd of the gathers and lerps; on
+the corner-expanded path with FUSED_LERP_BACKEND "pallas" through
+`lerp_cuda.corner_lerp` (on CUDA the `CornerLerp` Function, whose backward
+is the JAX VJP), then the row index and `expand_corners_to`.
 """
 from __future__ import annotations
 
@@ -74,6 +80,35 @@ def expand_corners(grid: torch.Tensor) -> torch.Tensor:
     padded = F.pad(grid, (0, 0, 1, 1, 1, 1, 1, 1))
     return torch.cat([padded[:, dz:dz + d + 1, dy:dy + h + 1, dx:dx + w + 1]
                       for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)], dim=-1)
+
+
+class _ExpandCorners(torch.autograd.Function):
+    """expand_corners of the grid cast to `dtype`. The backward adds the
+    eight corner blocks of the gradient into one fp32 buffer: JAX expands
+    the grid, then casts, so its backward sums them in the grid's fp32."""
+
+    @staticmethod
+    def forward(ctx, grid, dtype):
+        ctx.in_dtype = grid.dtype
+        return expand_corners(grid.to(dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        b, dp, hp, wp, c8 = g.shape
+        c = c8 // 8
+        acc = torch.zeros((b, dp + 1, hp + 1, wp + 1, c), dtype=torch.float32,
+                          device=g.device)
+        for k in range(8):
+            dz, dy, dx = k >> 2, (k >> 1) & 1, k & 1
+            acc[:, dz:dz + dp, dy:dy + hp, dx:dx + wp] += g[..., k * c:(k + 1) * c]
+        return acc[:, 1:-1, 1:-1, 1:-1].to(ctx.in_dtype), None
+
+
+def expand_corners_to(grid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """expand_corners(grid) in `dtype` (the JAX renderer's
+    `expand_corners(grid).astype(dtype)`), cast before the expansion so
+    that no expanded copy in the grid's dtype is made."""
+    return _ExpandCorners.apply(grid, dtype)
 
 
 def corner_weights_and_rows(coords: torch.Tensor, d: int, h: int, w: int):

@@ -25,7 +25,8 @@ straight from the wrapper where no gradient is wanted.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 `corner_lerp_plain`. `corner_lerp.launches` counts calls that launched,
-`cuda_launches` launches of csrc/corner_lerp.cu.
+`cuda_launches` launches of csrc/corner_lerp.cu, `vjp_calls` backward passes
+through `CornerLerp`.
 
 Gradient: the CUDA branch is a `torch.autograd.Function` whose backward is
 the JAX package's custom VJP (`lerp_pallas._bwd`) in plain PyTorch:
@@ -107,6 +108,7 @@ class CornerLerp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         rows, w = ctx.saved_tensors
+        corner_lerp.vjp_calls += 1
         return corner_lerp_vjp(rows, w, g)
 
 
@@ -123,3 +125,4 @@ def corner_lerp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 corner_lerp.launches = 0        # calls that launched a kernel
 corner_lerp.cuda_launches = 0   # of those, launches of csrc/corner_lerp.cu
+corner_lerp.vjp_calls = 0       # backward passes through CornerLerp (corner_lerp_vjp)

@@ -5,13 +5,19 @@ importance over arbitrary sorted positions, and depth-guided fine
 Every sampler takes its random draws as optional tensor arguments (uniform
 in [0, 1), or standard normal for `sample_fine_depth`), so a test can feed
 both packages the same numbers; when a draw is None it is taken from
-`generator` on the rays' device.
+`generator` on the generator's device (a CPU generator, as the trainer's,
+serves rays on the card) and moved to the rays' device.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def _drawn(fn, shape, like, generator):
+    dev = generator.device if generator is not None else like.device
+    return fn(shape, generator=generator, device=dev, dtype=like.dtype).to(like.device)
 
 
 def uniform(shape, like: torch.Tensor, u: Optional[torch.Tensor] = None,
@@ -21,8 +27,13 @@ def uniform(shape, like: torch.Tensor, u: Optional[torch.Tensor] = None,
         if tuple(u.shape) != tuple(shape):
             raise ValueError(f"draws of shape {tuple(u.shape)}, want {tuple(shape)}")
         return u.to(device=like.device, dtype=like.dtype)
-    return torch.rand(shape, generator=generator, device=like.device,
-                      dtype=like.dtype)
+    return _drawn(torch.rand, shape, like, generator)
+
+
+def normal(shape, like: torch.Tensor, generator: Optional[torch.Generator] = None
+           ) -> torch.Tensor:
+    """Fresh N(0, 1) draws of `like`'s dtype on its device."""
+    return _drawn(torch.randn, shape, like, generator)
 
 
 def _lerp_z(rays, z_steps, lindisp):
@@ -96,7 +107,6 @@ def sample_fine_depth(rays: torch.Tensor, depth: torch.Tensor,
     rays: (B, 8); depth: (B,); eps: (B, n_fine_depth) standard normal."""
     shape = (rays.shape[0], n_fine_depth)
     if eps is None:
-        eps = torch.randn(shape, generator=generator, device=rays.device,
-                          dtype=rays.dtype)
+        eps = normal(shape, rays, generator)
     z = depth[:, None].expand(shape) + eps.to(rays) * depth_std
     return torch.minimum(torch.maximum(z, rays[:, -2:-1]), rays[:, -1:])

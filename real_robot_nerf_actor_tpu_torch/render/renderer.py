@@ -19,8 +19,14 @@ mlp_backend "xla" runs the plain field. The field's weights live in
 `self.field` (convert.py maps a flax tree onto it); the kernels' packed
 copy is built once, by `load_field` (or `init_params`).
 
-Every random draw can be passed in (`draws`, `u`, `subset`), so a test can
-feed the JAX package's numbers; otherwise it comes from `generator`. The
+Training (the NeRF-Actor joint step) calls `rendering_loss`, whose
+`render_rays` builds the autograd graph through the plain field, or, on the
+corner-expanded grid with `ops.grid_sample.FUSED_LERP_BACKEND = "pallas"`,
+through the `corner_lerp` kernel and its VJP. The int8 serving kernels
+refuse grad (`ops/_grad.py`).
+
+Every random draw can be passed in (`draws`, `u`, `subset`, `ray_idx`), so a
+test can feed the JAX package's numbers; otherwise it comes from `generator`. The
 entry points run on CUDA unless the caller passes device="cpu", and raise
 where CUDA is missing.
 """
@@ -39,7 +45,7 @@ from real_robot_nerf_actor_tpu_torch.models.nerf_field import (
     NerfFieldConfig, VoxelNerfField)
 from real_robot_nerf_actor_tpu_torch.ops.compositing import (
     CompositeOut, composite, compute_weights_unsorted)
-from real_robot_nerf_actor_tpu_torch.ops.grid_sample import expand_corners
+from real_robot_nerf_actor_tpu_torch.ops.grid_sample import expand_corners_to
 from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
 from real_robot_nerf_actor_tpu_torch.ops.occupancy import (
     max_dilate, occupied_aabb, pool_occupancy, sample_occupancy, tighten_rays)
@@ -49,7 +55,7 @@ from real_robot_nerf_actor_tpu_torch.ops.resnetfc_cuda import (
     capture_act_amax, fused_gather_resnetfc_int8, fused_resnetfc_int8,
     pack_resnetfc_params, static_act_scales)
 from real_robot_nerf_actor_tpu_torch.ops.sampling import (
-    sample_coarse, sample_fine, sample_fine_depth, sample_importance_z, uniform)
+    normal, sample_coarse, sample_fine, sample_fine_depth, sample_importance_z, uniform)
 from real_robot_nerf_actor_tpu_torch.train.serve import resolve_device
 
 
@@ -197,8 +203,7 @@ class NeuralRenderer(nn.Module):
             embeds = out["hidden" if compact else "embed"].reshape(r, k, -1)
         if self.cfg.noise_std > 0.0:
             if noise is None:
-                noise = torch.randn(sigmas.shape, generator=generator,
-                                    device=sigmas.device)
+                noise = normal(sigmas.shape, sigmas, generator)
             sigmas = sigmas + noise.to(sigmas) * self.cfg.noise_std
         if self.cfg.field.mask_outside:
             # the kernels bypass the field's own mask, and noise would undo
@@ -260,7 +265,7 @@ class NeuralRenderer(nn.Module):
         stratified draws (n_rays, n_coarse + n_fine)."""
         c = self.cfg.field
         if voxel_feat.shape[-1] == c.d_latent:   # accept the raw grid too
-            voxel_feat = expand_corners(voxel_feat.to(c.dtype))
+            voxel_feat = expand_corners_to(voxel_feat, c.dtype)
         if rays.shape[0] > n_rays:
             if subset is None:
                 subset = torch.randperm(rays.shape[0], generator=generator,
@@ -401,18 +406,20 @@ class NeuralRenderer(nn.Module):
         return OccupancyState(pooled=pooled, aabb=occupied_aabb(pooled))
 
     # -------------------------------------------------------------- render
-    @torch.no_grad()
     def render_rays(self, voxel_feat, rays, generator=None, pre_expanded: bool = False,
                     occ: Optional[OccupancyState] = None,
                     draws: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
         """Coarse + fine render of a flat ray batch (R, 8). Returns
         {'coarse': CompositeOut, 'fine': CompositeOut}. draws (optional):
         coarse_u, coarse_jitter (occupancy placement), fine_u, fine_jitter,
-        fine_depth_eps, noise_coarse, noise_fine."""
+        fine_depth_eps, noise_coarse, noise_fine. Differentiable in
+        voxel_feat and the field's weights (the serving entry points call it
+        under no_grad); the sample positions carry no gradient, as the JAX
+        renderer stops it at the samplers' weights and the coarse depth."""
         c = self.cfg
         d = dict(draws or {})
         if not pre_expanded and self._should_expand(rays.shape[0], voxel_feat):
-            voxel_feat = expand_corners(voxel_feat.to(c.field.dtype))
+            voxel_feat = expand_corners_to(voxel_feat, c.field.dtype)
             pre_expanded = True
         late = self._late_embed_active()
         occ_mode = c.sampling_mode == "occupancy" and occ is not None
@@ -457,7 +464,7 @@ class NeuralRenderer(nn.Module):
                                        u=d.get("fine_u"), jitter=d.get("fine_jitter"),
                                        generator=generator))
         if c.n_fine_depth > 0:
-            new.append(sample_fine_depth(rays, coarse.depth, c.n_fine_depth,
+            new.append(sample_fine_depth(rays, coarse.depth.detach(), c.n_fine_depth,
                                          c.depth_std, eps=d.get("fine_depth_eps"),
                                          generator=generator))
         z_new = torch.cat(new, dim=-1)
@@ -535,7 +542,7 @@ class NeuralRenderer(nn.Module):
         expanded = self._should_expand(rays.shape[0], voxel_feat)
         if expanded:
             with torch.profiler.record_function("expand_corners"):
-                voxel_feat = expand_corners(voxel_feat.to(cfg.field.dtype))
+                voxel_feat = expand_corners_to(voxel_feat, cfg.field.dtype)
         n = rays.shape[0]
         if plan is not None:
             rays_sel = rays[plan.idx.clamp(max=n - 1)]
@@ -570,3 +577,53 @@ class NeuralRenderer(nn.Module):
             rgb, embed, depth = full_rgb, full_embed, full_depth
         return (rgb[:n].reshape(h, w, 3), embed[:n].reshape(h, w, -1),
                 depth[:n].reshape(h, w))
+
+    # ---------------------------------------------------------------- loss
+    def rendering_loss(self, voxel_feat, gt_rgb, gt_pose, focal, generator=None,
+                       gt_embed=None, gt_depth=None, c_principal=None,
+                       occ: Optional[OccupancyState] = None,
+                       ray_idx: Optional[torch.Tensor] = None,
+                       draws: Optional[Mapping[str, torch.Tensor]] = None):
+        """Sampled-ray rendering loss of one view (the JAX package's
+        `rendering_loss`): ray_chunk_size rays of the (1, H, W) view, the
+        coarse and fine rgb MSE, lambda_embed times the embed MSE of both
+        passes against gt_embed (1, H, W, D), and lambda_depth times the
+        masked depth MSE of both against gt_depth (1, H, W) where
+        gt_depth < z_far. gt_rgb (1, H, W, 3) in [0, 1], gt_pose (1, 4, 4).
+        ray_idx (ray_chunk_size,) picks the rays (else drawn uniformly from
+        `generator`); draws go to render_rays. Returns (loss, metrics)."""
+        cfg = self.cfg
+        h, w = cfg.image_height, cfg.image_width
+        rays = gen_rays(gt_pose, w, h, focal, cfg.z_near, cfg.z_far,
+                        c=c_principal).reshape(-1, 8)
+        if ray_idx is None:
+            gen_dev = generator.device if generator is not None else "cpu"
+            ray_idx = torch.randint(0, h * w, (cfg.ray_chunk_size,), generator=generator,
+                                    device=gen_dev)
+        ray_idx = ray_idx.to(rays.device).long()
+        out = self.render_rays(voxel_feat, rays[ray_idx], generator, occ=occ, draws=draws)
+        gt_rgb_sel = gt_rgb.reshape(-1, 3)[ray_idx]
+        coarse, fine = out["coarse"], out.get("fine", out["coarse"])
+        loss_rgb_c = torch.mean((coarse.rgb - gt_rgb_sel) ** 2)
+        loss_rgb_f = torch.mean((fine.rgb - gt_rgb_sel) ** 2)
+        loss = loss_rgb_c + loss_rgb_f
+        metrics = {"loss_rgb_coarse": loss_rgb_c, "loss_rgb_fine": loss_rgb_f,
+                   "psnr": psnr(fine.rgb, gt_rgb_sel)}
+        if gt_embed is not None:
+            gt_e = gt_embed.reshape(-1, gt_embed.shape[-1])[ray_idx]
+            loss_e_f = cfg.lambda_embed * torch.mean((fine.embed - gt_e) ** 2)
+            loss_e_c = cfg.lambda_embed * torch.mean((coarse.embed - gt_e) ** 2)
+            loss = loss + loss_e_f + loss_e_c
+            metrics["loss_embed_fine"] = loss_e_f
+            metrics["loss_embed_coarse"] = loss_e_c
+        if gt_depth is not None and cfg.lambda_depth > 0:
+            gt_d = gt_depth.reshape(-1)[ray_idx]
+            mask = (gt_d < cfg.z_far).to(gt_d.dtype)
+            denom = torch.clamp(mask.sum(), min=1.0)
+            loss_d_c = cfg.lambda_depth * torch.sum(mask * (coarse.depth - gt_d) ** 2) / denom
+            loss_d_f = cfg.lambda_depth * torch.sum(mask * (fine.depth - gt_d) ** 2) / denom
+            loss = loss + loss_d_c + loss_d_f
+            metrics["loss_depth_coarse"] = loss_d_c
+            metrics["loss_depth_fine"] = loss_d_f
+        metrics["loss_render"] = loss
+        return loss, metrics

@@ -9,8 +9,10 @@ voxelization, the forward, `bc_losses`, backward and the optimizer step.
 With `conv_backend: pallas` on a CUDA device the `final` conv runs the k3
 kernel forward and its VJP backward (ops/conv3d_cuda.py). The flash
 attention and spatial-stats kernels have no backward, so their knobs stay
-off in training (their wrappers refuse grad). The UNet encoder's BatchNorm
-in train mode is not ported yet: `train_step` refuses `input_encoder: unet`.
+off in training (their wrappers refuse grad). The step runs the network
+with train=True, so a UNet encoder's BatchNorm normalises with the batch
+statistics and updates its running ones (the JAX `_forward` under
+`mutable=["batch_stats"]`); `predict` reads them.
 
 Entry points run on CUDA unless the caller passes device="cpu"; without a
 CUDA device they raise rather than fall back.
@@ -173,6 +175,41 @@ class PerActTrainer:
                           optimizer=Optimizer(self.cfg.train.optim, net.named_parameters()))
 
     # -------------------------------------------------------------- step
+    def _forward_bc(self, net, batch, generator=None, draws=None):
+        """SE(3) aug, voxelization, the forward in train mode and
+        `bc_losses`: (network outputs, the aug (None without it), the BC
+        loss, its metrics)."""
+        c = self.cfg
+        v = c.model.voxel_size
+        points = batch["points"]
+        aug = None
+        if c.use_se3_aug:
+            if draws is None:
+                gen_dev = generator.device if generator is not None else "cpu"
+                draws = torch.rand((points.shape[0], 3), generator=generator,
+                                   device=gen_dev) * 2.0 - 1.0
+            aug = apply_se3_augmentation(points, batch["kf_xyz"], self.bounds,
+                                         self.trans_aug_range, v,
+                                         symmetric_clamp=c.se3_symmetric_clamp, u=draws)
+            points = aug.pcd
+            action_trans = aug.action_trans[:, 1]   # next keyframe
+            proprio_trans = aug.action_trans[:, 0]  # current keyframe
+        else:
+            idx = point_to_voxel_index(batch["kf_xyz"], v, self.bounds)
+            action_trans, proprio_trans = idx[:, 1], idx[:, 0]
+        proprio = torch.cat([proprio_trans.float(), batch["proprio"][:, 3:]], dim=-1)
+        vox = voxelize(points, batch["colors"], self.bounds, c.voxelizer,
+                       valid=batch["valid"])
+        out = net(vox, proprio, batch["lang"], train=True)
+        action = DiscreteAction(trans=action_trans, rot_grip=batch["rot_grip"],
+                                collision=batch["collision"])
+        total, metrics = bc_losses(
+            out[0], out[1], out[2], action, v, c.model.num_rotation_classes,
+            q_trans_aux=out[-1] if c.model.aux_trans_head else None,
+            patch_size=c.model.voxel_patch_size, lambda_aux=c.lambda_aux_trans,
+            trans_smooth=c.trans_label_smooth, z_loss=c.z_loss)
+        return out, aug, total, metrics
+
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[torch.Tensor] = None
@@ -188,42 +225,9 @@ class PerActTrainer:
         afterwards. The profiler sees three ranges: train_step.forward
         (augmentation, voxelization, forward, losses), .backward and
         .optimizer."""
-        c = self.cfg
-        if c.model.input_encoder != "conv1":
-            raise NotImplementedError(
-                "train_step: the UNet encoder's BatchNorm in train mode is not "
-                "ported yet; train with model.input_encoder=conv1")
-        v = c.model.voxel_size
         with record_function("train_step.forward"):
-            points = batch["points"]
-            if c.use_se3_aug:
-                if draws is None:
-                    gen_dev = generator.device if generator is not None else "cpu"
-                    draws = torch.rand((points.shape[0], 3), generator=generator,
-                                       device=gen_dev) * 2.0 - 1.0
-                aug = apply_se3_augmentation(points, batch["kf_xyz"], self.bounds,
-                                             self.trans_aug_range, v,
-                                             symmetric_clamp=c.se3_symmetric_clamp, u=draws)
-                points = aug.pcd
-                action_trans = aug.action_trans[:, 1]   # next keyframe
-                proprio_trans = aug.action_trans[:, 0]  # current keyframe
-            else:
-                idx = point_to_voxel_index(batch["kf_xyz"], v, self.bounds)
-                action_trans, proprio_trans = idx[:, 1], idx[:, 0]
-            proprio = torch.cat([proprio_trans.float(), batch["proprio"][:, 3:]], dim=-1)
-
-            vox = voxelize(points, batch["colors"], self.bounds, c.voxelizer,
-                           valid=batch["valid"])
-            net = state.module
-            net.zero_grad(set_to_none=True)
-            out = net(vox, proprio, batch["lang"])
-            action = DiscreteAction(trans=action_trans, rot_grip=batch["rot_grip"],
-                                    collision=batch["collision"])
-            total, metrics = bc_losses(
-                out[0], out[1], out[2], action, v, c.model.num_rotation_classes,
-                q_trans_aux=out[-1] if c.model.aux_trans_head else None,
-                patch_size=c.model.voxel_patch_size, lambda_aux=c.lambda_aux_trans,
-                trans_smooth=c.trans_label_smooth, z_loss=c.z_loss)
+            state.module.zero_grad(set_to_none=True)
+            total, metrics = self._forward_bc(state.module, batch, generator, draws)[2:]
         with record_function("train_step.backward"):
             total.backward()
         with record_function("train_step.optimizer"):

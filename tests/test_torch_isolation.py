@@ -166,6 +166,8 @@ def test_training_modules_import_without_jax():
         "import real_robot_nerf_actor_tpu_torch.utils.logger\n"
         "import real_robot_nerf_actor_tpu_torch.train.trainer\n"
         "import real_robot_nerf_actor_tpu_torch.train.peract\n"
+        "import real_robot_nerf_actor_tpu_torch.train.nerfact\n"
+        "import real_robot_nerf_actor_tpu_torch.eval.metrics\n"
         "import real_robot_nerf_actor_tpu_torch.convert\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -197,3 +199,17 @@ def test_chip_smoke_trains_peract_yaml():
     assert yaml.safe_load((REPO / "configs/peract.yaml").read_text()) == cs.PERACT
     assert from_dict(PerActConfig, cs.PERACT) == load_config(
         PerActConfig, str(REPO / "configs/peract.yaml"))
+
+
+def test_chip_smoke_trains_nerfact_yaml():
+    """chip_smoke.py's joint-step config is configs/nerfact.yaml as written."""
+    yaml = pytest.importorskip("yaml")
+    import importlib.util
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict, load_config
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert yaml.safe_load((REPO / "configs/nerfact.yaml").read_text()) == cs.NERFACT
+    assert from_dict(NerfActConfig, cs.NERFACT) == load_config(
+        NerfActConfig, str(REPO / "configs/nerfact.yaml"))

@@ -502,6 +502,84 @@ def test_tiny_train_step_kernel_matches_plain(cuda):
                                    atol=1e-4 * w.abs().max().item(), msg=lambda m: f"{n}: {m}")
 
 
+def test_tiny_joint_step_kernels_match_plain(cuda, monkeypatch):
+    """The port's NeRF-Actor joint step at the tiny size of
+    tests/test_torch_train_nerfact.py (UNet encoder, 8 x 8 view, 64 rays of
+    16 + 4 samples on the corner-expanded grid), fp32, from the same
+    weights, batch and draws: the kernels (conv_backend "pallas" and
+    corner_lerp) against their plain versions ("conv2d" and
+    corner_lerp_plain on the same route). The kernel run launches the conv and its VJP once, the lerp and
+    its VJP twice, the plain run neither; the metrics agree to 1e-5
+    relative and every gradient to 1e-4 of its tensor's largest |g|. The
+    UNet's head is scaled to 0.05, as in the CPU test: at full scale the
+    spatial softmax at T = 0.01 amplifies fp32 rounding past that bound."""
+    from real_robot_nerf_actor_tpu_torch.convert import final_conv_as_plain
+    from real_robot_nerf_actor_tpu_torch.models import NerfFieldConfig
+    from real_robot_nerf_actor_tpu_torch.ops import VoxelizerSpec
+    from real_robot_nerf_actor_tpu_torch.ops import grid_sample, lerp_cuda
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
+    from real_robot_nerf_actor_tpu_torch.render import RendererConfig
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig, NerfActTrainer
+    from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig
+    model = dict(depth=1, voxel_size=10, num_latents=16, latent_dim=32, im_channels=8,
+                 cross_dim_head=8, latent_dim_head=8, latent_heads=2, final_dim=8,
+                 lang_emb_dim=16, lang_max_seq_len=4, input_encoder="unet",
+                 return_voxel_feat=True)
+    render = RendererConfig(image_width=8, image_height=8, n_coarse=16, n_fine=4,
+                            n_fine_depth=2, ray_chunk_size=64, fused_gather=True,
+                            field=NerfFieldConfig(d_latent=8, d_embed=4, d_hidden=16,
+                                                  n_blocks=2, combine_layer=1))
+    g = torch.Generator().manual_seed(3)
+    draws = dict(draws=torch.tensor([[0.3, -0.7, 0.1], [-0.2, 0.9, -0.5]], device=cuda),
+                 ray_idx=torch.randint(0, 64, (64,), generator=g),
+                 render_draws={"coarse_u": torch.rand((64, 16), generator=g),
+                               "fine_u": torch.rand((64, 2), generator=g),
+                               "fine_jitter": torch.rand((64, 2), generator=g),
+                               "fine_depth_eps": torch.randn((64, 2), generator=g)})
+    runs = {}
+    monkeypatch.setattr(grid_sample, "FUSED_LERP_BACKEND", "pallas")
+    for conv, lerp in (("pallas", corner_lerp), ("conv2d", corner_lerp_plain)):
+        monkeypatch.setattr(lerp_cuda, "corner_lerp", lerp)
+        cfg = NerfActConfig(peract=PerActConfig(
+            model=PerceiverConfig(**model, conv_backend=conv),
+            voxelizer=VoxelizerSpec(voxel_size=10, max_num_coords=512)), renderer=render)
+        tr = NerfActTrainer(cfg, device=cuda)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        if conv == "conv2d":
+            state.module.load_state_dict(final_conv_as_plain(runs["pallas"]["sd"], "policy."))
+        else:
+            with torch.no_grad():
+                state.module["policy"].encoder_3d.Conv_0.weight.mul_(0.05)
+        sd0 = {k: v.clone() for k, v in state.module.state_dict().items()}
+        batch = next(tr.synthetic_data(batch_size=2, seed=1))
+        counts = (conv3d_k3.launches, conv3d_k3.vjp_calls, corner_lerp.cuda_launches,
+                  corner_lerp.vjp_calls)
+        state, metrics = tr.train_step(state, batch, **draws)
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in state.module.named_parameters()}
+        if conv == "conv2d":
+            grads["policy.final.pallas_kernel"] = grads.pop(
+                "policy.final.Conv_0.weight").permute(2, 3, 4, 1, 0)
+            grads["policy.final.pallas_bias"] = grads.pop("policy.final.Conv_0.bias")
+        runs[conv] = dict(sd=sd0, grads=grads, m={k: v.item() for k, v in metrics.items()},
+                          launches=tuple(b - a for a, b in zip(counts, (
+                              conv3d_k3.launches, conv3d_k3.vjp_calls,
+                              corner_lerp.cuda_launches, corner_lerp.vjp_calls))))
+    assert runs["pallas"]["launches"] == (1, 1, 2, 2)
+    assert runs["conv2d"]["launches"] == (0, 0, 0, 0)
+    got, want = runs["pallas"], runs["conv2d"]
+    for k, w in want["m"].items():
+        assert abs(got["m"][k] - w) <= 1e-5 * abs(w), k
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    assert got["grads"]["policy.encoder_3d.Conv_0.weight"].abs().max() > 0
+    for n, w in want["grads"].items():
+        if n == "policy.trans_decoder.bias":
+            assert max(w.abs().max().item(), got["grads"][n].abs().max().item()) <= 1e-5 * top
+            continue
+        torch.testing.assert_close(got["grads"][n], w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item(), msg=lambda m: f"{n}: {m}")
+
+
 # ------------------------------------------------- serving renderer kernels
 def _random_mlp_state(d_latent=64, d_hidden=512, n_blocks=5, combine=3, seed=0):
     """A ResnetFC state_dict with every weight random (std fan_in^-1/2)."""

@@ -227,8 +227,9 @@ def test_stratified_xla_path_matches_jax_fp32():
              "fine_jitter": jax.random.uniform(k_j, (40, 2)),
              "fine_depth_eps": jax.random.normal(k_fdepth, (40, 2))}
     draws = {k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()}
-    out_t = tr.render_rays(torch.from_numpy(vox), torch.from_numpy(np.asarray(rays_j)),
-                           draws=draws)
+    with torch.no_grad():
+        out_t = tr.render_rays(torch.from_numpy(vox), torch.from_numpy(np.asarray(rays_j)),
+                               draws=draws)
     for p in ("coarse", "fine"):
         for name in ("rgb", "embed", "depth", "weights"):
             a = getattr(out_t[p], name).numpy()

@@ -242,18 +242,34 @@ def _keep_grads():
         lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
 
 
+def _numpy_batch_stats(shapes, seed=6):
+    """BatchNorm running statistics drawn with numpy: means N(0, 0.3^2),
+    variances U(0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        if path[-1].key == "var":
+            return jnp.asarray(rng.uniform(0.5, 1.5, s.shape), jnp.float32)
+        return jnp.asarray(0.3 * rng.standard_normal(s.shape), jnp.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def _jax_step(jax_cfg, batch):
     """JAX train_step on `batch` at key 1: (loss metrics, params, grads,
-    the SE(3) draws of its key)."""
+    the SE(3) draws of its key, the batch statistics before and after the
+    step; {} without BatchNorm)."""
     tr = JaxTrainer(jax_cfg)
     tr.tx = _keep_grads()
     m = jax_cfg.model
     shapes = jax.eval_shape(lambda: tr.net.init(
         jax.random.key(0), jnp.zeros((1, 10, 10, 10, 10)), jnp.zeros((1, 7)),
-        jnp.zeros((1, m.lang_max_seq_len, m.lang_emb_dim))))["params"]
-    params = _numpy_params(shapes)
+        jnp.zeros((1, m.lang_max_seq_len, m.lang_emb_dim))))
+    params = _numpy_params(shapes["params"])
+    extra = ({"batch_stats": _numpy_batch_stats(shapes["batch_stats"])}
+             if "batch_stats" in shapes else {})
     state = JaxState(step=jnp.zeros((), jnp.int32), params=params,
-                     opt_state=tr.tx.init(params), extra={})
+                     opt_state=tr.tx.init(params), extra=extra)
     rng = jax.random.key(1)
     new, metrics = jax.jit(tr.train_step)(state, {k: jnp.asarray(v) for k, v in batch.items()},
                                           rng)
@@ -261,7 +277,7 @@ def _jax_step(jax_cfg, batch):
     draws = jax.vmap(lambda k: jax.random.uniform(k, (3,), minval=-1.0, maxval=1.0))(
         jax.random.split(k_aug, B))
     return ({k: float(v) for k, v in metrics.items()}, params, new.opt_state,
-            np.array(draws))
+            np.array(draws), extra, new.extra)
 
 
 @pytest.fixture(scope="module")
@@ -271,15 +287,16 @@ def steps():
     grads, and parameters after its AdamW step), each computed once."""
     cache = {}
 
-    def get(dtype, conv, aug=True):
-        key = (dtype, conv, aug)
+    def get(dtype, conv, aug=True, encoder="conv1"):
+        key = (dtype, conv, aug, encoder)
         if key not in cache:
-            jax_cfg, cfg = _configs(compute_dtype=dtype, conv_backend=conv, use_se3_aug=aug)
+            jax_cfg, cfg = _configs(compute_dtype=dtype, conv_backend=conv, use_se3_aug=aug,
+                                    input_encoder=encoder)
             batch = _batch()
-            jax_m, params, grads, draws = _jax_step(jax_cfg, batch)
+            jax_m, params, grads, draws, stats, new_stats = _jax_step(jax_cfg, batch)
             tr = PerActTrainer(cfg, device="cpu")
             state = tr.init_state(torch.Generator().manual_seed(0))
-            state.module.load_state_dict(flax_to_state_dict({"params": params}))
+            state.module.load_state_dict(flax_to_state_dict({"params": params, **stats}))
             state, got_m = tr.train_step(state, {k: torch.from_numpy(v) for k, v in
                                                  batch.items()},
                                          draws=torch.from_numpy(draws))
@@ -291,6 +308,8 @@ def steps():
                 m={k: v.item() for k, v in got_m.items()},
                 g={n: p.grad.clone() for n, p in named.items()},
                 p={n: p.detach().clone() for n, p in named.items()},
+                stats=dict(state.module.named_buffers()),
+                jax_stats=flax_to_state_dict(new_stats),
                 optim=jax_cfg.train.optim)
         return cache[key]
     return get
@@ -314,7 +333,10 @@ def test_train_step_matches_jax(steps, conv, aug):
     2 lr apart (27-33 of the 189045 entries here, each with |g| under 5e-5
     of its tensor's largest); every other entry agrees to 1e-3 lr plus
     fp32 rounding."""
-    r = steps("float32", conv, aug)
+    _check_fp32_step(steps("float32", conv, aug), conv)
+
+
+def _check_fp32_step(r, conv):
     assert set(r["m"]) == set(r["jax_m"])
     for k, w in r["jax_m"].items():
         np.testing.assert_allclose(r["m"][k], w, rtol=1e-5, err_msg=k)
@@ -360,7 +382,10 @@ def test_train_step_bf16_within_jax_bf16_error(steps, conv):
     the port no further from it than 3x the JAX package's own bf16 step
     (the worst ratio measured is 2.0), plus 2^-8 of the metric or of the
     tensor's norm."""
-    ref, r = steps("float32", conv), steps("bfloat16", conv)
+    _check_bf16_step(steps("float32", conv), steps("bfloat16", conv))
+
+
+def _check_bf16_step(ref, r):
     for k, w in ref["jax_m"].items():
         jax_err, err = abs(r["jax_m"][k] - w), abs(r["m"][k] - w)
         assert err <= 3 * jax_err + 2 ** -8 * abs(w), (k, err, jax_err)
@@ -382,13 +407,24 @@ def test_synthetic_data_matches_jax():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(w), err_msg=k)
 
 
-def test_train_step_refuses_unet_encoder():
-    _, cfg = _configs(input_encoder="unet")
-    tr = PerActTrainer(cfg, device="cpu")
-    state = tr.init_state(torch.Generator().manual_seed(0))
-    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        tr.train_step(state, batch, torch.Generator().manual_seed(1))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_unet_matches_jax(steps, dtype):
+    """input_encoder "unet": the step runs the encoder's BatchNorm on batch
+    statistics, as the JAX step does under mutable=["batch_stats"]. fp32:
+    the bounds of test_train_step_matches_jax, and the running statistics
+    after the step within 1e-5 of their scale; bf16: the bounds of
+    test_train_step_bf16_within_jax_bf16_error (the encoder runs in fp32 in
+    both packages), the statistics within 1e-5 of the fp32 JAX step's."""
+    r = steps(dtype, "conv2d", encoder="unet")
+    ref = steps("float32", "conv2d", encoder="unet")
+    if dtype == "float32":
+        _check_fp32_step(r, "conv2d")
+    else:
+        _check_bf16_step(ref, r)
+    assert r["jax_stats"] and set(r["jax_stats"]) == set(r["stats"])
+    for n, w in ref["jax_stats"].items():
+        torch.testing.assert_close(r["stats"][n], w, rtol=0,
+                                   atol=1e-5 * w.abs().max().item(), msg=lambda m: f"{n}: {m}")
 
 
 def test_config_dataclass_matches_jax():
