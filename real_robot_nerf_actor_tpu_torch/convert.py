@@ -26,7 +26,8 @@ JAX run resumes in the port on the same trajectory: the Adam moments are
 elementwise, so they take the same leaf mapping as the parameters. The
 NeRF-Actor joint state (params `{"policy", "nerf"}`) maps by
 `joint_to_state_dict`, and its optax state by `load_optax_state` as it is:
-the moments' tree is the joint params tree.
+the moments' tree is the joint params tree. The CLIP text tower maps by
+`clip_text_to_state_dict`.
 """
 from __future__ import annotations
 
@@ -82,6 +83,35 @@ def joint_to_state_dict(params: Mapping[str, Any],
     `policy.*` and `nerf.*`, the BatchNorm statistics under `policy.`."""
     stats = dict(extra or {}).get("batch_stats", {})
     return flax_to_state_dict({"params": params, "batch_stats": {"policy": stats}})
+
+
+def clip_text_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax `ClipTextEncoder` variables ({"params": ...}
+    or the params tree itself, arrays as numpy) -> the state_dict of the
+    port's `models.clip_text.ClipTextEncoder`. Dense kernels are transposed;
+    the attention's (width, heads, head_dim) query/key/value kernels and
+    (heads, head_dim, width) out kernel are flattened to (width, width)
+    first, their (heads, head_dim) biases to (width,); the embedding table
+    becomes `token_embedding.weight`."""
+    params = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _walk(params):
+        a = np.asarray(value, np.float32)
+        *mods, leaf = path
+        if leaf == "embedding":
+            leaf = "weight"
+        elif leaf == "kernel":
+            if a.ndim == 3 and mods[-1] == "out":
+                a = a.reshape(-1, a.shape[-1])
+            elif a.ndim == 3:
+                a = a.reshape(a.shape[0], -1)
+            a, leaf = a.T, "weight"
+        elif leaf == "bias" and a.ndim == 2:
+            a = a.reshape(-1)
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join([*mods, leaf])] = torch.tensor(np.ascontiguousarray(a))
+    return out
 
 
 def final_conv_as_plain(state_dict: Mapping[str, torch.Tensor],

@@ -16,6 +16,11 @@ selects a Pallas kernel in JAX selects the Hopper kernel here:
   conv_backend "pallas" -> ops/conv3d_cuda.conv3d_k3 for `final` (k3, s1,
                            zero padding only);
   stats_backend "pallas" -> ops/stats_cuda (cubic volumes with V % 4 == 0).
+`dropout_rate` builds the same layers as flax (attention dropout has no
+parameters) and, as in JAX, sends attention to the plain path even with
+use_flash_attention on. Dropout acts only with deterministic=False, which
+no caller of either package passes: in every mode they use the network is
+the dropout-free one.
 Numerics follow flax: LayerNorm eps 1e-6, tanh-approximate GELU, the UNet
 and head Dense layers in fp32, attention/FF outputs cast to fp32.
 Module and parameter names mirror the flax tree (see convert.py).
@@ -99,15 +104,16 @@ class MHAttention(nn.Module):
 
     def __init__(self, query_dim: int, context_dim: int, heads: int,
                  dim_head: int, out_dim: int, dtype: torch.dtype,
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout_rate: float = 0.0):
         super().__init__()
         inner = heads * dim_head
-        self.heads, self.dim_head, self.use_flash = heads, dim_head, use_flash
+        self.heads, self.dim_head, self.dropout_rate = heads, dim_head, dropout_rate
+        self.use_flash = use_flash and dropout_rate == 0
         self.to_q = Dense(query_dim, inner, use_bias=False, dtype=dtype)
         self.to_kv = Dense(context_dim, inner * 2, use_bias=False, dtype=dtype)
         self.to_out = Dense(inner, out_dim, dtype=dtype)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, deterministic: bool = True):
         context = x if context is None else context
         q = self.to_q(x)
         k, v = self.to_kv(context).chunk(2, dim=-1)
@@ -122,6 +128,11 @@ class MHAttention(nn.Module):
             # through a view of the same layout: no copy either way
             out = q.new_empty((x.shape[0], x.shape[1], self.heads * self.dim_head))
             flash_attention(q, k, v, out=split_heads(out))
+        elif self.dropout_rate > 0 and not deterministic:
+            s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * self.dim_head ** -0.5
+            p = F.dropout(torch.softmax(s, dim=-1).to(v.dtype), self.dropout_rate)
+            out = torch.einsum("bhij,bhjd->bhid", p, v)
+            out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
         else:
             out = reference_attention(q, k, v)
             out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
@@ -142,17 +153,19 @@ class GEGLUFeedForward(nn.Module):
 class PreNormAttn(nn.Module):
     def __init__(self, query_dim: int, context_dim: int, heads: int,
                  dim_head: int, out_dim: int, dtype: torch.dtype,
-                 cross: bool = False, use_flash: bool = False):
+                 cross: bool = False, use_flash: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.LayerNorm_0 = nn.LayerNorm(query_dim, eps=_LN_EPS)
         self.norm_context = (nn.LayerNorm(context_dim, eps=_LN_EPS)
                              if cross else None)
         self.MHAttention_0 = MHAttention(query_dim, context_dim, heads,
-                                         dim_head, out_dim, dtype, use_flash)
+                                         dim_head, out_dim, dtype, use_flash,
+                                         dropout_rate)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, deterministic: bool = True):
         cn = self.norm_context(context) if self.norm_context is not None else None
-        return self.MHAttention_0(self.LayerNorm_0(x), cn)
+        return self.MHAttention_0(self.LayerNorm_0(x), cn, deterministic)
 
 
 class PreNormFF(nn.Module):
@@ -168,8 +181,6 @@ class PreNormFF(nn.Module):
 class PerceiverIO(nn.Module):
     def __init__(self, cfg: PerceiverConfig):
         super().__init__()
-        if cfg.dropout_rate != 0.0:
-            raise NotImplementedError("dropout is not ported (serving path)")
         c = self.cfg = cfg
         dt = cfg.dtype
         s = cfg.spatial_size
@@ -188,15 +199,15 @@ class PerceiverIO(nn.Module):
         self.pos_encoding = nn.Parameter(
             torch.empty(1, c.lang_max_seq_len + s ** 3, seq_dim))
         self.latents = nn.Parameter(torch.empty(c.num_latents, c.latent_dim))
-        flash = c.use_flash_attention
+        flash, drop = c.use_flash_attention, c.dropout_rate
         self.cross_attend = PreNormAttn(c.latent_dim, seq_dim, c.cross_heads,
                                         c.cross_dim_head, c.latent_dim, dt,
-                                        cross=True, use_flash=flash)
+                                        cross=True, use_flash=flash, dropout_rate=drop)
         self.cross_ff = PreNormFF(c.latent_dim, dt)
         for i in range(c.depth):
             setattr(self, f"self_attn_{i}", PreNormAttn(
                 c.latent_dim, c.latent_dim, c.latent_heads, c.latent_dim_head,
-                c.latent_dim, dt, use_flash=flash))
+                c.latent_dim, dt, use_flash=flash, dropout_rate=drop))
             setattr(self, f"self_ff_{i}", PreNormFF(c.latent_dim, dt))
         self.decoder_cross_attn = PreNormAttn(
             seq_dim, c.latent_dim, c.cross_heads, c.cross_dim_head, seq_dim, dt,
@@ -236,12 +247,14 @@ class PerceiverIO(nn.Module):
             return spatial_softmax_3d_pallas(x.contiguous())
         return spatial_softmax_3d(x)
 
-    def forward(self, voxel_grid, proprio, lang_goal_embs, train: bool = False):
+    def forward(self, voxel_grid, proprio, lang_goal_embs, train: bool = False,
+                deterministic: bool = True):
         """voxel_grid (B, V, V, V, initial_dim), proprio (B, low_dim_size),
         lang_goal_embs (B, 77, lang_emb_dim). train=True runs the UNet
         encoder's BatchNorm on batch statistics and updates its running
         statistics in place (the JAX `train=True` under
-        `mutable=["batch_stats"]`); the default reads them. Returns
+        `mutable=["batch_stats"]`); the default reads them.
+        deterministic=False applies the attention dropout. Returns
         (q_trans (B,V,V,V), q_rot_grip (B,3R+2), q_collision (B,2)
         [, voxel_feat d0][, q_trans_aux (B, s^3)])."""
         c = self.cfg
@@ -268,13 +281,13 @@ class PerceiverIO(nn.Module):
         seq = torch.cat([lang.to(dt_seq), ins.to(dt_seq)], dim=1) + self.pos_encoding
 
         x = self.latents[None].expand(b, *self.latents.shape)
-        x = self.cross_attend(x, seq) + x
+        x = self.cross_attend(x, seq, deterministic) + x
         x = self.cross_ff(x) + x
         for i in range(c.depth):
-            x = getattr(self, f"self_attn_{i}")(x) + x
+            x = getattr(self, f"self_attn_{i}")(x, None, deterministic) + x
             x = getattr(self, f"self_ff_{i}")(x) + x
 
-        dec = self.decoder_cross_attn(seq, x)
+        dec = self.decoder_cross_attn(seq, x, deterministic)
         dec = dec[:, c.lang_max_seq_len:].reshape(b, s, s, s, c.input_dim_before_seq)
         feats.extend([self._ssm(dec), torch.amax(dec, dim=(1, 2, 3))])
 

@@ -289,15 +289,133 @@ class PerActTrainer:
                 out["collision"].append(torch.as_tensor(coll_all[i + 1]))
             yield {k: torch.stack(v).to(dev) for k, v in out.items()}
 
+    def replay_data(self, root: str, n_demos: int, batch_size: int = 1, seed: int = 0,
+                    lang_embs: Optional[np.ndarray] = None, with_views: bool = False,
+                    exclude_demos: Tuple[int, ...] = (), sample_mode: str = "uniform"
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+        """Batches from recorded demos (`data/replay.ReplaySource`'s layout):
+        pick (demo, keyframe k), observe pcd{k}, supervise with keyframe
+        k+1's action. with_views adds each keyframe's ground-truth view
+        (gt_rgb, gt_pose, focal, and gt_embed / gt_depth where recorded).
+        exclude_demos holds demo ids out of training. sample_mode "uniform"
+        draws (demo, keyframe) i.i.d.; "demo_cycle" emits one demo's whole
+        transition set, shuffled, before it draws the next demo (see
+        iter_transitions). See multi_replay_data."""
+        entry = {"root": root, "n_demos": n_demos, "lang": lang_embs,
+                 "exclude_demos": tuple(exclude_demos)}
+        return self.multi_replay_data([entry], batch_size, seed, with_views=with_views,
+                                      sample_mode=sample_mode)
+
+    def multi_replay_data(self, entries, batch_size: int = 1, seed: int = 0,
+                          with_views: bool = False, sample_mode: str = "uniform"
+                          ) -> Iterator[Dict[str, torch.Tensor]]:
+        """Batches drawn across several recorded kitchen-task directories.
+        entries: dicts {root, n_demos, lang (77, D) or None, exclude_demos};
+        each carries its own language embedding, calibration and views.
+
+        The draws are the JAX package's: one np.random.default_rng(seed),
+        (demo, keyframe) by iter_transitions, then, with views, the camera
+        of each sample; so both packages give the same batches. Every cloud,
+        view and label is staged on the device once, when the first batch
+        is asked for (the labels computed there, as the JAX package computes
+        them on its device); a batch is then stacked from them on the
+        device."""
+        from real_robot_nerf_actor_tpu_torch.data.replay import ReplaySource
+
+        c = self.cfg
+        dev = self.device
+        rng = np.random.default_rng(seed)
+        srcs = [ReplaySource(e["root"], e["n_demos"]) for e in entries]
+        if with_views:
+            for e, src in zip(entries, srcs):
+                if not src.has_views:
+                    raise ValueError(f"{e['root']} has no ground-truth views "
+                                     "(real*/rgb*.png): train PerAct only")
+        zero_lang = np.zeros((c.model.lang_max_seq_len, c.model.lang_emb_dim), np.float32)
+        langs = [torch.as_tensor(e.get("lang") if e.get("lang") is not None
+                                 else zero_lang, dtype=torch.float32).to(dev)
+                 for e in entries]
+
+        units = []     # (entry, demo) training units
+        clouds = {}    # (e, d, k) -> (points, colors, valid) on the device
+        views = {}     # (e, d, k, v) -> {gt_rgb[, gt_embed][, gt_depth]} on the device
+        disc = {}      # (e, d) -> (rot_grip (K, 4), collision (K, 1)) numpy
+        gt_poses = {}  # e -> (n_views, 4, 4) on the device
+        focals = {}
+        for ei, (e, src) in enumerate(zip(entries, srcs)):
+            exclude = set(e.get("exclude_demos", ()))
+            train_demos = [d for d in range(e["n_demos"]) if d not in exclude]
+            if not train_demos:
+                raise ValueError(f"exclude_demos removed every demo of {e['root']}")
+            for d in train_demos:
+                units.append((ei, d))
+                demo = src.demos[d]
+                nk = demo.num_keyframes
+                dd = discretize_action(
+                    torch.as_tensor(demo.xyz, device=dev),
+                    torch.as_tensor(demo.rotation, device=dev),
+                    torch.as_tensor(demo.gripper_open, device=dev),
+                    torch.ones((nk,), device=dev), self.bounds, c.model.voxel_size,
+                    c.rotation_resolution)
+                disc[(ei, d)] = (dd.rot_grip.cpu().numpy(), dd.collision.cpu().numpy())
+                for k in range(nk):
+                    clouds[(ei, d, k)] = tuple(
+                        torch.as_tensor(a).to(dev) for a in pad_point_cloud(
+                            src.pointcloud(d, k), c.voxelizer.max_num_coords))
+                    if with_views:
+                        for vi in range(src.n_train_views):
+                            v = src.view(d, k, vi)
+                            views[(ei, d, k, vi)] = {
+                                key: torch.as_tensor(v[name]).to(dev)
+                                for key, name in (("gt_rgb", "rgb"), ("gt_embed", "embed"),
+                                                  ("gt_depth", "depth")) if name in v}
+            if with_views:
+                gt_poses[ei] = torch.as_tensor(np.stack(
+                    [src.train_pose(vi) for vi in range(src.n_train_views)])).to(dev)
+                focals[ei] = float(src.focal)
+
+        picks = iter_transitions(rng, units,
+                                 lambda u: srcs[u[0]].num_keyframes(u[1]) - 1, sample_mode)
+        while True:
+            host = {k: [] for k in ("proprio", "kf_xyz", "rot_grip", "collision")}
+            staged = {k: [] for k in ("points", "colors", "valid", "lang")}
+            vout: Dict[str, list] = {}
+            focal_out = []
+            for _ in range(batch_size):
+                (ei, d), k = next(picks)
+                rg_all, coll_all = disc[(ei, d)]
+                for key, a in zip(("points", "colors", "valid"), clouds[(ei, d, k)]):
+                    staged[key].append(a)
+                staged["lang"].append(langs[ei])
+                host["proprio"].append(np.concatenate(
+                    [np.zeros(3, np.float32), np.asarray(rg_all[k], np.float32)]))
+                xyz = srcs[ei].demos[d].xyz
+                host["kf_xyz"].append(np.stack([xyz[k], xyz[k + 1]]))
+                host["rot_grip"].append(rg_all[k + 1])
+                host["collision"].append(coll_all[k + 1])
+                if with_views:
+                    vi = int(rng.integers(0, srcs[ei].n_train_views))
+                    for key, a in views[(ei, d, k, vi)].items():
+                        vout.setdefault(key, []).append(a)
+                    vout.setdefault("gt_pose", []).append(gt_poses[ei][vi])
+                    focal_out.append(focals[ei])
+            batch = {k: torch.stack(v) for k, v in staged.items()}
+            batch.update({k: torch.as_tensor(np.stack(v)).to(dev) for k, v in host.items()})
+            batch.update({k: torch.stack(v) for k, v in vout.items()})
+            if with_views:
+                batch["focal"] = torch.tensor(focal_out, dtype=torch.float32, device=dev)
+            yield batch
+
     def make_trainer(self, data: Optional[Iterator] = None) -> Trainer:
         return Trainer(self.cfg.train, self.train_step, data or self.synthetic_data(),
                        self.init_state)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainState:
-    """PerAct BC training on the bundled synthetic scene (the counterpart of
-    scripts/train_peract.py without --data-root). Configs are JSON (YAML
-    where PyYAML is installed) with dot-path overrides."""
+    """PerAct BC training (the counterpart of scripts/train_peract.py): on
+    recorded demos with --data-root, or across a multi-kitchen dataset with
+    --multi-root, else on the bundled synthetic scene. Configs are JSON
+    (YAML where PyYAML is installed) with dot-path overrides."""
     from real_robot_nerf_actor_tpu_torch.utils.config import load_config
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -310,6 +428,11 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     ap.add_argument("--log-dir", default=None)
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--data-root", default=None,
+                    help="recorded demos: {d}_xarm_position.txt + real{d}/pcd{k}.ply")
+    ap.add_argument("--multi-root", default=None,
+                    help="multi-kitchen dataset: manifest.json + lang_embs.npz + k{i}_t{j}/")
+    ap.add_argument("--n-demos", type=int, default=5)
     args = ap.parse_args(argv)
 
     cfg = load_config(PerActConfig, args.config, args.override)
@@ -320,8 +443,14 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
                                log_dir=args.log_dir or tcfg.log_dir)
     cfg = dataclasses.replace(cfg, train=tcfg)
     tr = PerActTrainer(cfg, device=args.device)
-    trainer = tr.make_trainer(tr.synthetic_data(batch_size=args.batch_size))
-    return trainer.run(resume=not args.no_resume)
+    if args.multi_root:
+        from real_robot_nerf_actor_tpu_torch.data.multitask import load_multitask_entries
+        data = tr.multi_replay_data(load_multitask_entries(args.multi_root), args.batch_size)
+    elif args.data_root:
+        data = tr.replay_data(args.data_root, args.n_demos, args.batch_size)
+    else:
+        data = tr.synthetic_data(batch_size=args.batch_size)
+    return tr.make_trainer(data).run(resume=not args.no_resume)
 
 
 if __name__ == "__main__":

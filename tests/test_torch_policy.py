@@ -115,3 +115,28 @@ def test_param_names_cover_both_trees():
             assert set(sd) == set(want)
             for k, v in sd.items():
                 assert tuple(v.shape) == tuple(want[k].shape), k
+
+
+@pytest.mark.parametrize("knobs", ["on", "off"])
+def test_dropout_rate_matches_jax(knobs):
+    """dropout_rate 0.1 builds the JAX layers (it used to raise). Every JAX
+    caller runs deterministic, so the forward is the dropout-free one: fp32
+    within 1e-4 of each output's scale. The routing is JAX's: with the flash
+    knob on, the cross and self attention take the plain path and the
+    decoder's cross attention, which JAX builds without dropout, keeps the
+    kernel. deterministic=False applies the dropout."""
+    from real_robot_nerf_actor_tpu_torch.models.perceiver import MHAttention
+    kw = dict(TINY, input_encoder="unet", dropout_rate=0.1,
+              **(KNOBS_ON if knobs == "on" else KNOBS_OFF))
+    want, got = _run_both(kw)
+    _assert_close(want, got, 1e-4)
+    net = PerceiverIO.initialized(PerceiverConfig(**kw), torch.Generator().manual_seed(0))
+    assert [m.use_flash for m in net.modules() if isinstance(m, MHAttention)] == [
+        False, False, knobs == "on"]
+    assert all(m.dropout_rate == 0.1 for m in (net.cross_attend.MHAttention_0,
+                                               net.self_attn_0.MHAttention_0))
+    x = [torch.from_numpy(a) for a in _inputs()]
+    torch.manual_seed(0)
+    with torch.no_grad():
+        a, b, c = net(*x), net(*x, deterministic=False), net(*x)
+    assert torch.equal(a[1], c[1]) and not torch.allclose(a[1], b[1])
