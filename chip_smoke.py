@@ -95,6 +95,15 @@ Phases, each reported on its own line:
      eval's int8 frames against the plain field's render of the same d0
      and draws (the render check's bounds), and a planted wrong pack that
      must fail that check.
+  9. featurenerf: FeatureNeRF pretraining (see featurenerf_phase): the port
+     writes 8 orbit scenes of 12 views at 128 x 128, dumps the seed-drawn
+     ViT-S/8 teacher's features and CLS attention into them, fits a 64-
+     component PCA on the card against a float64 SVD, trains
+     configs/featurenerf.yaml (its z band overridden) for FNERF_WARMUP +
+     FNERF_STEPS steps and one profiled step with three source views, holds
+     the first step's losses and gradients on the card to the same step on
+     the CPU (two planted faults must fail that check), and evaluates novel
+     views of the val scene. No kernel of the seven lies on this path.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -172,6 +181,43 @@ REPLAY_DATA = dict(n_kitchens=2, n_tasks=2, n_demos=2, image_hw=(128, 128), d_em
                    n_points=60000)
 REPLAY_WARMUP = 3
 REPLAY_STEPS = 8
+# the featurenerf phase: configs/featurenerf.yaml as written (a CPU test holds
+# the two equal) and one override: the file's 0.5-1.8 m depth band is for the
+# 0.75 m orbit of the JAX package's generate_nerf_scene, while the synthetic
+# arc's cameras sit 2.2 m from the scene's centre, outside it; the override is
+# FeatureNerfConfig's own default band
+FEATURENERF = dict(
+    model=dict(d_embed=384, d_hidden=512, n_blocks=5, combine_layer=3, regress_coord=True),
+    renderer=dict(n_coarse=64, n_fine=32, n_fine_depth=16, white_bkgd=False),
+    ray_batch_size=512, z_near=0.5, z_far=1.8, lambda_coarse=1.0, lambda_fine=1.0,
+    lambda_embed=0.1, lambda_attn=0.0, lambda_coord=0.25, nviews=[1],
+    train=dict(num_steps=20000, log_every=50, eval_every=1000, ckpt_every=2000,
+               optim=dict(lr=1.0e-4)))
+FEATURENERF_OVERRIDE = dict(z_near=1.2, z_far=4.0)
+# 8 scenes of 12 views at 128 x 128 (the size train/featurenerf.py states for
+# a scene; 8 give SceneDataset one val scene), the ViT-S/8 teacher at full
+# width, features kept at the teacher's 384 (d_embed of the config)
+FNERF_SCENES = dict(n_scenes=8, n_views=12, hw=(128, 128))
+FNERF_TEACHER = dict(patch=8, embed_dim=384, depth=12, pca=0)
+FNERF_WARMUP = 3
+FNERF_STEPS = 10
+FNERF_SRC3 = (0, 4, 8)   # the three source views of the combine step and the grad check
+# PCA on the card (fp32 covariance and eigh) vs a float64 SVD of the same
+# features: each component's projections within PCA_TOL of their largest
+# |value| (a CPU run at this width read 9.2e-5 at worst, for a component
+# 7.9e-5 of the top eigenvalue from its neighbour; an H100 4.0e-4), the
+# explained variances within PCA_VAR_TOL of the top one: the worst-case fp32
+# error of a Gram sum over 24576 vectors is 24576 * 2^-24 = 1.5e-3 of its
+# scale (the CPU's LAPACK read 3.6e-7, an H100 9.1e-5)
+PCA_COMPONENTS = 64
+PCA_TOL = 1e-3
+PCA_VAR_TOL = 1e-3
+# the first FeatureNeRF step on the card against the same step on the CPU
+# (fp32, TF32 off, the same weights and draws): losses within FNERF_LOSS_TOL
+# relative, each gradient within FNERF_GRAD_TOL of its tensor's largest |g|
+# (the two differ only in the order of fp32 sums)
+FNERF_LOSS_TOL = 1e-4
+FNERF_GRAD_TOL = 1e-3
 # the trans decoder's bias shifts every trans logit alike, which the softmax
 # CE does not see: its gradient is zero, and what a step computes for it is
 # rounding
@@ -1689,6 +1735,297 @@ def replay_phase(torch, dev, card):
         fail(f"replay: the frame check does not see the planted wrong pack: {fault_check}")
 
 
+def featurenerf_phase(torch, np, dev, card):
+    """Phase 9: FeatureNeRF pretraining at full width.
+
+    1. featurenerf_data: synthesize_scene_npz writes FNERF_SCENES into a
+       temporary directory (focal 0.7 * 128); dump_teacher_features runs the
+       ViT-S/8 teacher (384 wide, depth 12, 6 heads, image_size 128, grid
+       16 x 16, fp32, weights from seed 0) over every view with --pca 0 and
+       writes features (12, 16, 16, 384) and cls_attn (12, 6, 16, 16) into
+       each file. Then pca_fit / pca_transform at PCA_COMPONENTS on the card
+       over all dumped feature vectors, against a float64 numpy SVD: the
+       projections within PCA_TOL of each component's scale, the explained
+       variances within PCA_VAR_TOL of the top one, every component's sign
+       (svd_flip) equal.
+    2. featurenerf: configs/featurenerf.yaml with FEATURENERF_OVERRIDE
+       (d_embed 384, field 512 x 5 blocks combining at 3, encoder (64, 64,
+       128, 256), 512 rays of 64 + 32 samples, 16 of them around the coarse
+       depth, lambda_coord 0.25, nviews [1], AdamW lr 1e-4); the train
+       scenes staged once by scene_data; FNERF_WARMUP untimed steps and
+       FNERF_STEPS timed ones; one step under the profiler (device time
+       split into the encode, render, backward and optimizer ranges, top
+       kernels, busy share); then one profiled step with FNERF_SRC3 as
+       source views, so that the view combine runs on the card.
+    3. featurenerf_grad: the first step from fresh weights on FNERF_SRC3,
+       on the card (deterministic algorithms: bilinear_sample_2d's backward
+       is an accumulating index_put_) and on the CPU, same weights and
+       draws: losses within FNERF_LOSS_TOL, every gradient within
+       FNERF_GRAD_TOL of its tensor's largest |g|; a second card step gives
+       the repeat gap; two planted faults must each fail the check: the
+       view combine taken as max, and uv with x and y swapped.
+    4. featurenerf_eval: eval/novel.py's evaluate on the val scene (one
+       full frame in tiles of 2048 rays) and one more frame of it, PSNR,
+       SSIM and ms a frame; extract_radiance on one tile, shapes checked.
+    Fails on a non-finite loss or metric, a wrong shape, a failed PCA or
+    gradient check, and a planted fault that passes."""
+    import glob
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch.data.scene_dataset import (
+        SceneDataset, load_scene, synthesize_scene_npz)
+    from real_robot_nerf_actor_tpu_torch.eval import novel
+    from real_robot_nerf_actor_tpu_torch.eval.metrics import psnr_np, ssim_np
+    from real_robot_nerf_actor_tpu_torch.models import pixelnerf
+    from real_robot_nerf_actor_tpu_torch.ops.rays import gen_rays
+    from real_robot_nerf_actor_tpu_torch.train.distill2d import dump_teacher_features
+    from real_robot_nerf_actor_tpu_torch.train.featurenerf import (
+        FeatureNerfConfig, FeatureNerfTrainer)
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict
+    from real_robot_nerf_actor_tpu_torch.utils.pca import pca_fit, pca_transform
+
+    t_phase = time.perf_counter()
+    cfg = from_dict(FeatureNerfConfig, {**FEATURENERF, **FEATURENERF_OVERRIDE})
+    if cfg.model.d_embed != FNERF_TEACHER["embed_dim"]:
+        fail("featurenerf: d_embed must be the teacher's width (--pca 0)")
+    with tempfile.TemporaryDirectory() as root:
+        # ------------------------------------------------------------- data
+        t0 = time.perf_counter()
+        for i in range(FNERF_SCENES["n_scenes"]):
+            synthesize_scene_npz(os.path.join(root, f"scene_{i}.npz"),
+                                 n_views=FNERF_SCENES["n_views"], hw=FNERF_SCENES["hw"], seed=i)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info = dump_teacher_features(root, device=dev, **FNERF_TEACHER)
+        torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t0
+        paths = sorted(glob.glob(os.path.join(root, "*.npz")))
+        scenes = [load_scene(p) for p in paths]
+        nv, h, w = scenes[0].images.shape[:3]
+        grid = (h // FNERF_TEACHER["patch"], w // FNERF_TEACHER["patch"])
+        want_f = (nv, *grid, FNERF_TEACHER["embed_dim"])
+        want_a = (nv, 6, *grid)
+        for sc in scenes:
+            if sc.features.shape != want_f or sc.cls_attn.shape != want_a:
+                fail(f"featurenerf_data: features {sc.features.shape} attn {sc.cls_attn.shape}, "
+                     f"want {want_f} / {want_a}")
+            if not (np.isfinite(sc.features).all() and np.isfinite(sc.cls_attn).all()):
+                fail("featurenerf_data: non-finite teacher output")
+        feats = np.concatenate([sc.features for sc in scenes]).reshape(-1, want_f[-1])
+        k = PCA_COMPONENTS
+        x = torch.as_tensor(feats, device=dev)
+        t0 = time.perf_counter()
+        comps, mean, var = pca_fit(x, k)
+        proj = pca_transform(x, comps, mean)
+        torch.cuda.synchronize()
+        pca_ms = (time.perf_counter() - t0) * 1e3
+        xc = feats.astype(np.float64) - feats.astype(np.float64).mean(0)
+        _, sv, vt = np.linalg.svd(xc, full_matrices=False)
+        lam = sv ** 2 / (len(xc) - 1)
+        idx = np.abs(vt[:k]).argmax(1)
+        vt = vt[:k] * np.sign(vt[np.arange(k), idx])[:, None]
+        p64 = xc @ vt.T
+        proj_err = (np.abs(proj.double().cpu().numpy() - p64).max(0)
+                    / np.abs(p64).max(0))
+        var_errs = np.abs(var.double().cpu().numpy() - lam[:k]) / lam[0]
+        var_err = float(var_errs.max())
+        # where the variances' error comes from: the same fp32 covariance
+        # decomposed in float64 on the card
+        xd = x - x.mean(dim=0)
+        cov = xd.T @ xd / (len(feats) - 1)
+        ev64 = torch.linalg.eigvalsh(cov.double()).flip(-1)[:k].cpu().numpy()
+        var_err_fp64_eigh = float((np.abs(ev64 - lam[:k]) / lam[0]).max())
+        del xd, cov
+        signs_equal = int(((comps.double().cpu().numpy() * vt).sum(1) > 0).sum())
+        gaps = np.minimum(np.abs(np.diff(lam[:k + 1], prepend=np.inf))[:k],
+                          np.abs(np.diff(lam[:k + 2]))[:k]) / lam[0]
+        worst = int(proj_err.argmax())
+        emit("featurenerf_data", scenes=len(scenes), views=nv, hw=[h, w],
+             write_s=write_s, dump_s=dump_s, teacher=info["teacher"],
+             teacher_cfg=FNERF_TEACHER, feature_shape=list(want_f), attn_shape=list(want_a),
+             pca_components=k, pca_vectors=len(feats), pca_ms=pca_ms,
+             pca_max_proj_err_of_scale=float(proj_err.max()), pca_worst_component=worst,
+             pca_worst_rel_gap=float(gaps[worst]), pca_min_rel_gap=float(gaps.min()),
+             pca_var_err_of_top=var_err, pca_var_worst_component=int(var_errs.argmax()),
+             pca_var_err_of_top_fp64_eigh=var_err_fp64_eigh,
+             pca_signs_equal=signs_equal, pca_tol=PCA_TOL,
+             pca_var_tol=PCA_VAR_TOL, card=card)
+        if not (proj_err.max() <= PCA_TOL and var_err <= PCA_VAR_TOL and signs_equal == k):
+            fail(f"featurenerf_data: PCA against float64 SVD: projections {proj_err.max()} "
+                 f"(component {worst}), variances {var_err}, {signs_equal}/{k} signs equal")
+        del x, proj
+
+        # ------------------------------------------------------------ train
+        train_ds, val_ds = SceneDataset(root, "train"), SceneDataset(root, "val")
+        staged_bytes = sum(4 + sum(a.nbytes for a in (sc.images, sc.poses, sc.features,
+                                                      sc.cls_attn))
+                           for p, sc in zip(paths, scenes) if p in train_ds.paths)
+        tr = FeatureNerfTrainer(cfg, device=dev)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        sd0 = {n: v.detach().cpu().clone() for n, v in state.module.state_dict().items()}
+        t0 = time.perf_counter()
+        data = tr.scene_data(train_ds, seed=0)
+        first = next(data)
+        torch.cuda.synchronize()
+        staging_s = time.perf_counter() - t0
+        gen = torch.Generator().manual_seed(1)
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, first_metrics = [], [], None
+        for i in range(FNERF_WARMUP + FNERF_STEPS):
+            batch = first if i == 0 else next(data)
+            t = time.perf_counter()
+            state, m = tr.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            if i >= FNERF_WARMUP:
+                times.append((time.perf_counter() - t) * 1e3)
+            losses.append(m["loss"].item())
+            first_metrics = first_metrics or {k_: v.item() for k_, v in m.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def profiled(batch):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                _, m = tr.train_step(state, batch, gen)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            rows = device_rows(torch, prof)
+            device_ms = sum(r[1] for r in rows)
+            split = {k_: range_device_ms(torch, prof, f"featurenerf.{k_}")
+                     for k_ in ("encode", "render", "optimizer")}
+            # autograd runs the backward on its own thread, outside the range
+            split["backward"] = device_ms - sum(split.values())
+            return dict(src_views=int(batch["src_ord"].numel()), step_wall_ms=wall_ms,
+                        device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+                        device_events=sum(r[2] for r in rows), split_device_ms=split,
+                        loss=m["loss"].item(),
+                        top_kernels=[{"name": n[:80], "ms": ms, "count": c}
+                                     for n, ms, c in rows[:12]])
+
+        prof1 = profiled(next(data))
+        prof3 = profiled(dict(next(data), src_ord=torch.tensor(FNERF_SRC3, device=dev)))
+        emit("featurenerf", config=dict(FEATURENERF, **FEATURENERF_OVERRIDE),
+             deviation="z_near 1.2, z_far 4.0 (the file's 0.5-1.8 m band misses the "
+                       "synthetic arc at 2.2 m)",
+             train_scenes=len(train_ds), staging_s=staging_s, staged_bytes=staged_bytes,
+             warmup=FNERF_WARMUP, steps=FNERF_STEPS, p50_ms=statistics.median(times),
+             step_ms=times, losses=losses, first_step_metrics=first_metrics,
+             peak_mem_gb=peak_gb, profiled_step=prof1, profiled_step_3_views=prof3, card=card)
+        if not all(map(math.isfinite, losses + [prof1["loss"], prof3["loss"]])):
+            fail(f"featurenerf: non-finite loss {losses}")
+
+        # ------------------------------------------------------- grad check
+        sc = train_ds[0]
+        host = {"images": sc.images, "poses": sc.poses, "focal": np.float32(sc.focal),
+                "features": sc.features, "src_ord": np.asarray(FNERF_SRC3)}
+        g = torch.Generator().manual_seed(2)
+        r, rc = cfg.ray_batch_size, cfg.renderer
+        nf = rc.n_fine - rc.n_fine_depth
+        draws = {"v": torch.randint(0, nv, (r,), generator=g),
+                 "y": torch.randint(0, h, (r,), generator=g),
+                 "x": torch.randint(0, w, (r,), generator=g)}
+        render_draws = {"coarse_u": torch.rand(r, rc.n_coarse, generator=g),
+                        "fine_u": torch.rand(r, nf, generator=g),
+                        "fine_jitter": torch.rand(r, nf, generator=g),
+                        "fine_depth_eps": torch.randn(r, rc.n_fine_depth, generator=g)}
+        sample = pixelnerf.bilinear_sample_2d
+
+        def first_step(device, fault=None):
+            trd = FeatureNerfTrainer(cfg, device=device)
+            s = trd.init_state(torch.Generator().manual_seed(0))
+            s.module.load_state_dict(sd0)
+            if fault == "combine_max":
+                s.module.mlp.combine_type = "max"
+            if fault == "uv_swapped":
+                pixelnerf.bilinear_sample_2d = lambda feat, uv: sample(feat, uv.flip(-1))
+            try:
+                t = time.perf_counter()
+                s, m = trd.train_step(s, {k_: torch.as_tensor(v, device=device)
+                                          for k_, v in host.items()},
+                                      draws=draws, render_draws=render_draws)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+            finally:
+                pixelnerf.bilinear_sample_2d = sample
+            return ({n: p.grad.detach().double().cpu() for n, p in s.module.named_parameters()},
+                    {k_: v.item() for k_, v in m.items()}, ms)
+
+        g_cpu, m_cpu, cpu_ms = first_step("cpu")
+
+        def gap(got):
+            """(worst loss gap over FNERF_LOSS_TOL, worst gradient gap over
+            FNERF_GRAD_TOL, its tensor): 1 is the bound."""
+            grads, metrics, _ = got
+            loss = max(abs(metrics[k_] - v) / (FNERF_LOSS_TOL * max(abs(v), 1e-12))
+                       for k_, v in m_cpu.items())
+            ratios = {n: ((grads[n] - gw).abs().max() / (FNERF_GRAD_TOL * gw.abs().max()
+                                                          + 1e-30)).item()
+                      for n, gw in g_cpu.items()}
+            name = max(ratios, key=ratios.get)
+            return loss, ratios[name], name
+
+        with deterministic_algorithms(torch) as nondeterministic_ops:
+            card_run = first_step(dev)
+            repeat = first_step(dev)
+            faults = {f: gap(first_step(dev, f)) for f in ("combine_max", "uv_swapped")}
+        loss_gap, grad_gap, worst_t = gap(card_run)
+        repeat_gap = max((card_run[0][n] - repeat[0][n]).abs().max().item() for n in g_cpu)
+        emit("featurenerf_grad", src_ord=list(FNERF_SRC3), loss_card=card_run[1]["loss"],
+             loss_cpu=m_cpu["loss"], loss_gap_of_tol=loss_gap, grad_gap_of_tol=grad_gap,
+             worst_tensor=worst_t, tensors=len(g_cpu), loss_tol=FNERF_LOSS_TOL,
+             grad_tol=FNERF_GRAD_TOL, repeat_gap=repeat_gap, card_step_ms=card_run[2],
+             cpu_step_ms=cpu_ms, nondeterministic_ops=nondeterministic_ops,
+             planted={f: {"loss_gap_of_tol": lg, "grad_gap_of_tol": gg, "worst_tensor": n}
+                      for f, (lg, gg, n) in faults.items()}, card=card)
+        if not (loss_gap <= 1.0 and grad_gap <= 1.0):
+            fail(f"featurenerf_grad: card vs CPU: loss {loss_gap}, gradient {grad_gap} "
+                 f"({worst_t}) of tolerance")
+        for f, (lg, gg, _) in faults.items():
+            if lg <= 1.0 and gg <= 1.0:
+                fail(f"featurenerf_grad: planted fault {f} passes the check")
+
+        # ------------------------------------------------------------- eval
+        t0 = time.perf_counter()
+        res = novel.evaluate(tr, state.module, val_ds, n_scenes=1, n_corr=0)
+        sc = val_ds[0]
+        with torch.no_grad():
+            enc = tr.encode(state.module, torch.as_tensor(sc.images[:1], device=dev),
+                            torch.as_tensor(sc.poses[:1], device=dev), float(sc.focal))
+        view = 1
+        t = time.perf_counter()
+        rgb, emb = novel.render_view(tr, state.module, sc, enc, view,
+                                     torch.Generator(device=dev).manual_seed(1))
+        frame2_ms = (time.perf_counter() - t) * 1e3
+        frames = [dict(view=len(sc.images) // 2, psnr=res["scenes"][0]["psnr"],
+                       ssim=res["scenes"][0]["ssim"], ms=res["scenes"][0]["frame_ms"][0]),
+                  dict(view=view, psnr=psnr_np(rgb, sc.images[view]),
+                       ssim=ssim_np(rgb.mean(-1), sc.images[view].mean(-1)), ms=frame2_ms)]
+        rays = gen_rays(torch.as_tensor(sc.poses[view:view + 1], device=dev), w, h,
+                        torch.tensor(float(sc.focal), device=dev), cfg.z_near,
+                        cfg.z_far).reshape(-1, 8)[:novel.TILE]
+        with torch.no_grad():
+            rad = tr.renderer(state.module).extract_radiance(
+                enc, rays, torch.Generator(device=dev).manual_seed(2))
+        rad_shapes = {k_: list(v.shape) for k_, v in rad.items()}
+        eval_s = time.perf_counter() - t0
+    emit("featurenerf_eval", val_scenes=len(val_ds), frames=frames, tile=novel.TILE,
+         embed_shape=list(emb.shape), radiance_shapes=rad_shapes, eval_s=eval_s,
+         phase_wall_s=time.perf_counter() - t_phase, card=card)
+    t_n, k_c = novel.TILE, cfg.renderer.n_coarse
+    want_rad = {"points": [t_n, k_c, 3], "rgb": [t_n, k_c, 3], "sigma": [t_n, k_c],
+                "embed": [t_n, k_c, cfg.model.d_embed], "weights": [t_n, k_c], "z": [t_n, k_c]}
+    if rad_shapes != want_rad or not all(torch.isfinite(v).all() for v in rad.values()):
+        fail(f"featurenerf_eval: extract_radiance {rad_shapes}, want {want_rad}")
+    if emb.shape != (h, w, cfg.model.d_embed) or not all(
+            math.isfinite(f["psnr"]) and math.isfinite(f["ssim"]) for f in frames):
+        fail(f"featurenerf_eval: frames {frames}, embed {emb.shape}")
+    if not (np.isfinite(rgb).all() and 0.0 <= rgb.min() and rgb.max() <= 1.0):
+        fail("featurenerf_eval: rgb outside [0, 1]")
+
+
 def mlp_err(got, want):
     """(largest gap, tolerance MLP_TOL of the largest |output|) over out and
     hidden, and the share of outputs more than one bf16 ulp of that scale
@@ -2089,7 +2426,10 @@ def main():
     # ----------------------------------------------------------- 8. replay
     replay_phase(torch, dev, card)
 
-    # ------------------------------------------------------- 9. summary
+    # ------------------------------------------------------ 9. featurenerf
+    featurenerf_phase(torch, np, dev, card)
+
+    # ------------------------------------------------------ 10. summary
     info = {
         "flash_attention": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/flash_attention.cu",
                             "real_robot_nerf_actor_tpu/ops/attention_pallas.py:70"),

@@ -7,6 +7,7 @@ layout:
 
   Dense `kernel` (in, out)                -> `weight` (out, in)
   Conv `kernel` (k, k, k, in, out)        -> `weight` (out, in, k, k, k)
+  2-D Conv `kernel` (k, k, in, out)       -> `weight` (out, in, k, k)
   ConvTranspose `kernel` (k, k, k, in, out) -> `weight` (in, out, k, k, k),
       flipped in all three spatial axes: flax's ConvTranspose does not flip
       its kernel and torch's conv_transpose3d does
@@ -27,7 +28,9 @@ elementwise, so they take the same leaf mapping as the parameters. The
 NeRF-Actor joint state (params `{"policy", "nerf"}`) maps by
 `joint_to_state_dict`, and its optax state by `load_optax_state` as it is:
 the moments' tree is the joint params tree. The CLIP text tower maps by
-`clip_text_to_state_dict`.
+`clip_text_to_state_dict`. The FeatureNeRF field (2-D encoder with
+BatchNorm statistics, ResnetFC) maps by `pixelnerf_to_state_dict`; the
+DINO ViT and the 2-D student map by `flax_to_state_dict` as they are.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ def _convert_leaf(path, value: np.ndarray):
             value = value[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
         elif value.ndim == 5:
             value = value.transpose(4, 3, 0, 1, 2)
+        elif value.ndim == 4 and not (mods and mods[-1].startswith("ConvTranspose")):
+            value = value.transpose(3, 2, 0, 1)
         else:
             raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {value.ndim}")
         leaf = "weight"
@@ -83,6 +88,17 @@ def joint_to_state_dict(params: Mapping[str, Any],
     `policy.*` and `nerf.*`, the BatchNorm statistics under `policy.`."""
     stats = dict(extra or {}).get("batch_stats", {})
     return flax_to_state_dict({"params": params, "batch_stats": {"policy": stats}})
+
+
+def pixelnerf_to_state_dict(params: Mapping[str, Any],
+                            extra: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """The JAX package's FeatureNeRF state (params {"encoder", "mlp"},
+    extra {"batch_stats": the encoder's BatchNorm statistics}) -> the
+    state_dict of the port's `PixelNerfNet`: 2-D conv kernels HWIO -> OIHW,
+    BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
+    running_var."""
+    stats = dict(extra or {}).get("batch_stats", {})
+    return flax_to_state_dict({"params": params, "batch_stats": stats})
 
 
 def clip_text_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -272,9 +272,13 @@ struct Loader {
         res.valid[i] = 1;
       }
       {
+        // a result enters inside the FIFO window [next_emit, next_emit +
+        // capacity): at most `capacity` wait, and the next one to emit is
+        // always let in, so loader_next never waits on a worker that waits
+        // for room held by later results
         std::unique_lock<std::mutex> lk(mu);
         cv_res.wait(lk, [&] {
-          return stop.load() || results.size() < capacity;
+          return stop.load() || res.seq < next_emit + (long)capacity;
         });
         if (stop.load()) return;
         results.push_back(std::move(res));
@@ -287,7 +291,7 @@ struct Loader {
 void* loader_create(int n_workers, long max_pts, long capacity) {
   Loader* L = new Loader();
   L->max_pts = max_pts;
-  L->capacity = (size_t)capacity;
+  L->capacity = (size_t)(capacity < 1 ? 1 : capacity);
   for (int i = 0; i < n_workers; i++)
     L->workers.emplace_back([L] { L->work(); });
   return L;

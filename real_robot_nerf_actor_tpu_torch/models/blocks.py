@@ -186,22 +186,23 @@ class ConvTranspose3d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm over the last axis (momentum 0.9, epsilon 1e-5).
+    """flax nn.BatchNorm over the last axis (epsilon 1e-5; momentum 0.9 as
+    the policy's blocks set it, or flax's default 0.99 as the 2-D encoder
+    leaves it).
 
     forward(x, train=False) normalises with the running statistics.
     forward(x, train=True) normalises with the batch's, over every axis but
     the last, computed in fp32 as flax computes them: mean = E[x] and the
     biased variance max(0, E[x^2] - E[x]^2), the gradient flowing through
     both; then y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and the
-    running statistics become 0.9 * running + 0.1 * batch (flax's
-    momentum; torch's is its complement, and `F.batch_norm` would update
+    running statistics become m * running + (1 - m) * batch (flax's
+    momentum m; torch's is its complement, and `F.batch_norm` would update
     with the unbiased variance)."""
 
-    momentum = 0.9
-
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))

@@ -5,7 +5,10 @@
     the raw params `lin_out_kernel` (d_hidden, d_out) / `lin_out_bias`, in
     the flax layout, as the JAX module declares them;
   - n_blocks residual blocks fc0(relu(x)) -> fc1(relu(.)), fc1 zero-init;
-  - latent injection x += lin_z_i(z) for blocks before combine_layer.
+  - latent injection x += lin_z_i(z) for blocks before combine_layer;
+  - with num_views > 1, the views (adjacent rows) are reduced at block
+    combine_layer, by their mean (combine_type "average") or max, and the
+    latent is dropped after it.
 
 Module and parameter names are the flax tree's, so convert.py maps a flax
 `mlp_coarse` tree onto it. `QuantDense` / `quantized` are not ported: no
@@ -48,9 +51,10 @@ class ResnetBlockFC(nn.Module):
 class ResnetFC(nn.Module):
     def __init__(self, d_in: int, d_out: int = 4, n_blocks: int = 5,
                  d_latent: int = 0, d_hidden: int = 512, combine_layer: int = 1000,
-                 dtype: torch.dtype = torch.float32):
+                 combine_type: str = "average", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_latent, self.n_blocks, self.combine_layer = d_latent, n_blocks, combine_layer
+        self.combine_type = combine_type
         self.dtype = dtype
         self.Dense_0 = Dense(d_in, d_hidden, kernel_init=KAIMING, dtype=dtype)
         if d_latent > 0:
@@ -72,9 +76,9 @@ class ResnetFC(nn.Module):
                 head_dims: Optional[int] = None):
         """zx: (..., d_latent + d_in), or a tuple (z, x). Returns (out
         (..., d_out or head_dims), last hidden); with ret_last_feat, out
-        carries the last hidden appended."""
-        if num_views != 1:
-            raise NotImplementedError("multi-view combine is not ported")
+        carries the last hidden appended. With num_views > 1 the leading axis
+        holds num_views adjacent rows a point and shrinks by that factor at
+        combine_layer."""
         if isinstance(zx, tuple):
             z, x = zx
             z = None if z is None else z.to(self.dtype)
@@ -85,6 +89,10 @@ class ResnetFC(nn.Module):
             x = zx[..., self.d_latent:]
         x = self.Dense_0(x)
         for blk in range(self.n_blocks):
+            if blk == self.combine_layer and num_views > 1:
+                x = x.reshape(-1, num_views, *x.shape[1:])
+                x = x.mean(dim=1) if self.combine_type == "average" else x.amax(dim=1)
+                z = None
             if z is not None and blk < self.combine_layer:
                 x = x + getattr(self, f"lin_z_{blk}")(z)
             x = getattr(self, f"ResnetBlockFC_{blk}")(x)

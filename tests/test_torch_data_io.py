@@ -258,6 +258,41 @@ def test_native_prefetcher_matches_the_replay_loader(tmp_path):
             np.testing.assert_allclose(rgb[valid], want[1][:n], rtol=0, atol=1e-6)
 
 
+def test_native_prefetcher_emits_when_later_jobs_finish_first(tmp_path):
+    """A result that is next in FIFO order must get into a full queue: with
+    capacity 1 and two workers, job 1 (a few points) finishes while job 0
+    (200000 points) is still parsed and takes the only slot, and job 0's
+    worker must not then wait for room that only loader_next, waiting for
+    job 0, would free. Run in a subprocess, so that a deadlock fails the
+    test instead of hanging it."""
+    import subprocess
+    import sys
+    big, small = _cloud(n=200000, seed=1), _cloud(n=20, seed=2)
+    paths = [str(tmp_path / f"p{i}.ply") for i in range(4)]
+    write_ply(paths[0], *big)
+    for p in paths[1:]:
+        write_ply(p, *small)
+    code = (
+        "import sys\n"
+        "from real_robot_nerf_actor_tpu_torch.data import native_loader\n"
+        "with native_loader.NativePrefetcher(max_num_coords=200000, n_workers=2,\n"
+        "                                    capacity=1) as pf:\n"
+        "    for p in sys.argv[1:]:\n"
+        "        pf.submit(p)\n"
+        "    n = [int(pf.next()[2].sum()) for _ in sys.argv[1:]]\n"
+        "print(n)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    native_loader.get_lib()   # build outside the timed subprocess
+    try:
+        out = subprocess.run([sys.executable, "-c", code, *paths], cwd=root,
+                             capture_output=True, text=True, timeout=60)
+    except subprocess.TimeoutExpired:
+        pytest.fail("the prefetcher deadlocked")
+    want = [int((np.linalg.norm(c[0], axis=-1) < 3).sum()) for c in (big, small, small, small)]
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(want)
+
+
 def test_native_build_raises_without_gxx(monkeypatch, tmp_path):
     monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(native_loader.shutil, "which", lambda name: None)

@@ -313,3 +313,98 @@ def test_chip_smoke_has_a_replay_phase():
     assert cs.REPLAY_DATA["image_hw"] == (cs.NERFACT["renderer"]["image_height"],
                                           cs.NERFACT["renderer"]["image_width"])
     assert cs.REPLAY_DATA["d_embed"] == cs.NERFACT["renderer"]["field"]["d_embed"]
+
+
+def test_featurenerf_pipeline_runs_without_jax(tmp_path):
+    """In a process where jax, flax and the JAX package cannot be imported:
+    import every module of the FeatureNeRF slice, write two tiny scenes,
+    dump a 12-layer teacher's features into them, take one train step and
+    evaluate novel views on the CPU."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "import real_robot_nerf_actor_tpu_torch.eval.correspondence\n"
+        "import real_robot_nerf_actor_tpu_torch.eval.extract\n"
+        "import real_robot_nerf_actor_tpu_torch.models.pixelnerf\n"
+        "import real_robot_nerf_actor_tpu_torch.render.pixelnerf_renderer\n"
+        "import real_robot_nerf_actor_tpu_torch.utils.pca\n"
+        "from real_robot_nerf_actor_tpu_torch.data import scene_dataset as sd\n"
+        "from real_robot_nerf_actor_tpu_torch.eval import novel\n"
+        "from real_robot_nerf_actor_tpu_torch.models.encoder2d import SpatialEncoderConfig\n"
+        "from real_robot_nerf_actor_tpu_torch.models.pixelnerf import PixelNerfConfig\n"
+        "from real_robot_nerf_actor_tpu_torch.render.pixelnerf_renderer import (\n"
+        "    PixelNerfRendererConfig)\n"
+        "from real_robot_nerf_actor_tpu_torch.train import distill2d, featurenerf as fn\n"
+        "root = sys.argv[1]\n"
+        "for i in range(2):\n"
+        "    sd.synthesize_scene_npz(f'{root}/s{i}.npz', n_views=3, hw=(16, 16), seed=i)\n"
+        "distill2d.dump_teacher_features(root, pca=4, embed_dim=12, device='cpu')\n"
+        "cfg = fn.FeatureNerfConfig(model=PixelNerfConfig(d_embed=4, d_hidden=8, n_blocks=2,\n"
+        "    combine_layer=1, encoder=SpatialEncoderConfig((4, 4, 8), 1)),\n"
+        "    renderer=PixelNerfRendererConfig(4, 2, 1), ray_batch_size=8, lambda_coord=0.1)\n"
+        "tr = fn.FeatureNerfTrainer(cfg, device='cpu')\n"
+        "st = tr.init_state(torch.Generator().manual_seed(0))\n"
+        "ds = sd.SceneDataset(root)\n"
+        "st, m = tr.train_step(st, next(tr.scene_data(ds)), torch.Generator().manual_seed(1))\n"
+        "assert torch.isfinite(m['loss'])\n"
+        "res = novel.evaluate(tr, st.module, sd.SceneDataset(root, 'val'), n_scenes=1)\n"
+        "assert len(res['scenes']) == 1 and ds[0].features.shape == (3, 2, 2, 4)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_featurenerf_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    """The FeatureNeRF trainer, the student trainer and the three CLIs
+    default to CUDA and raise without it."""
+    from real_robot_nerf_actor_tpu_torch.data.scene_dataset import synthesize_scene_npz
+    from real_robot_nerf_actor_tpu_torch.eval import novel
+    from real_robot_nerf_actor_tpu_torch.train import distill2d, featurenerf
+    synthesize_scene_npz(str(tmp_path / "s.npz"), n_views=2, hw=(8, 8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: featurenerf.FeatureNerfTrainer(featurenerf.FeatureNerfConfig()),
+                 lambda: distill2d.Student2DTrainer(distill2d.Distill2DConfig()),
+                 lambda: featurenerf.main(["--steps", "1", "--data-root", str(tmp_path)]),
+                 lambda: distill2d.main(["--data-root", str(tmp_path)]),
+                 lambda: novel.main(["--data-root", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_featurenerf_config_loads_like_jax():
+    """configs/featurenerf.yaml into both packages' FeatureNerfConfig."""
+    yaml = pytest.importorskip("yaml")
+    from real_robot_nerf_actor_tpu.train.featurenerf import FeatureNerfConfig as JaxCfg
+    from real_robot_nerf_actor_tpu.utils.config import from_dict as jax_from_dict
+    from real_robot_nerf_actor_tpu.utils.config import to_dict as jax_to_dict
+    from real_robot_nerf_actor_tpu_torch.train.featurenerf import FeatureNerfConfig
+    from real_robot_nerf_actor_tpu_torch.utils.config import load_config, to_dict
+    path = REPO / "configs/featurenerf.yaml"
+    ours = load_config(FeatureNerfConfig, str(path))
+    assert to_dict(ours) == jax_to_dict(jax_from_dict(JaxCfg, yaml.safe_load(path.read_text())))
+
+
+def test_chip_smoke_trains_featurenerf_yaml():
+    """chip_smoke.py's FeatureNeRF config is configs/featurenerf.yaml as
+    written, and its one override is the z band."""
+    yaml = pytest.importorskip("yaml")
+    import importlib.util
+    from real_robot_nerf_actor_tpu_torch.train.featurenerf import FeatureNerfConfig
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict, load_config
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    path = REPO / "configs/featurenerf.yaml"
+    assert yaml.safe_load(path.read_text()) == cs.FEATURENERF
+    assert from_dict(FeatureNerfConfig, cs.FEATURENERF) == load_config(FeatureNerfConfig,
+                                                                        str(path))
+    assert cs.FEATURENERF_OVERRIDE == {"z_near": 1.2, "z_far": 4.0}
+    assert cs.FNERF_TEACHER["embed_dim"] == cs.FEATURENERF["model"]["d_embed"]
