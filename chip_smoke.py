@@ -104,12 +104,23 @@ Phases, each reported on its own line:
      the first step's losses and gradients on the card to the same step on
      the CPU (two planted faults must fail that check), and evaluates novel
      views of the val scene. No kernel of the seven lies on this path.
+ 10. bc: behaviour cloning and RL over the representation zoo at full
+     width (see bc_phase): BC on resnet50 (fine-tuned and frozen), dino,
+     mvp, phase 9's featurenerf encoder and pointnet2; the diffusion head
+     and DiffusionQL; SAC on pixels from a prioritized buffer; stored
+     episodes into the PerAct step of configs/peract.yaml with conv3d_k3
+     and its VJP; the CLIP RN50 dumper. Each part's first update on the
+     card is held to the CPU's, and planted faults (BatchNorm statistics
+     frozen, TF32 on, SAC's actor gradient in its encoder, a scaled conv3d_k3
+     VJP) must fail that.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
 import contextlib
+import copy
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -212,16 +223,37 @@ FNERF_SRC3 = (0, 4, 8)   # the three source views of the combine step and the gr
 PCA_COMPONENTS = 64
 PCA_TOL = 1e-3
 PCA_VAR_TOL = 1e-3
-# the first FeatureNeRF step on the card against the same step on the CPU
-# (fp32, TF32 off, the same weights and draws): losses within FNERF_LOSS_TOL
-# relative, each gradient within FNERF_GRAD_TOL of its tensor's largest |g|
-# (the two differ only in the order of fp32 sums)
-FNERF_LOSS_TOL = 1e-4
-FNERF_GRAD_TOL = 1e-3
+# the first step of a trainer on the card against the same step on the CPU
+# (fp32, TF32 off, the same weights, inputs and draws; phases 9 and 10):
+# losses within LOSS_TOL relative, each gradient within GRAD_TOL of its
+# tensor's largest |g| (the two differ only in the order of fp32 sums); where
+# a part widens it, plus ULP_K times the largest change that moving every
+# weight one ulp (by seeded coins; behind a max-pool, also with the coins
+# turned over) makes in that gradient on the CPU: the gradient's own
+# sensitivity to rounding (a max over near-ties, a softmax at a low
+# temperature), read on the CPU only, so that the card's own rounding never
+# sets the card's bound
+LOSS_TOL = 1e-4
+GRAD_TOL = 1e-3
+ULP_K = 4
 # the trans decoder's bias shifts every trans logit alike, which the softmax
 # CE does not see: its gradient is zero, and what a step computes for it is
 # rounding
 INVARIANT = "trans_decoder.bias"
+# the bc phase: BCConfig's defaults (batch 64, MLP head 256, Adam 3e-4) on
+# 224 x 224 images, 64 clouds of 4096 points (_stack_obs's cap), SAC on
+# make_env's 64 x 64 x 3 pixels at scripts/train_rl.py's batch 128, the CLIP
+# dumper on 8 images
+BC_BATCH = 64
+BC_HW = 224
+BC_WARMUP = 2
+BC_STEPS = 5
+SAC_BATCH = 128
+SAC_HW = 64
+SAC_UPDATES = 8
+CLIP_BATCH = 8
+# outputs of a forward on the card within FWD_TOL of the CPU's largest |value|
+FWD_TOL = 1e-4
 # fused MLP kernels vs their plain versions: the largest gap within 2^-4 of
 # each output's largest |value|, and at most MLP_SHARE of the outputs more
 # than one bf16 ulp of that scale (2^-8) apart. An fp32 sum that rounds one
@@ -1760,8 +1792,8 @@ def featurenerf_phase(torch, np, dev, card):
     3. featurenerf_grad: the first step from fresh weights on FNERF_SRC3,
        on the card (deterministic algorithms: bilinear_sample_2d's backward
        is an accumulating index_put_) and on the CPU, same weights and
-       draws: losses within FNERF_LOSS_TOL, every gradient within
-       FNERF_GRAD_TOL of its tensor's largest |g|; a second card step gives
+       draws: losses within LOSS_TOL, every gradient within
+       GRAD_TOL of its tensor's largest |g|; a second card step gives
        the repeat gap; two planted faults must each fail the check: the
        view combine taken as max, and uv with x and y swapped.
     4. featurenerf_eval: eval/novel.py's evaluate on the val scene (one
@@ -1956,16 +1988,11 @@ def featurenerf_phase(torch, np, dev, card):
         g_cpu, m_cpu, cpu_ms = first_step("cpu")
 
         def gap(got):
-            """(worst loss gap over FNERF_LOSS_TOL, worst gradient gap over
-            FNERF_GRAD_TOL, its tensor): 1 is the bound."""
-            grads, metrics, _ = got
-            loss = max(abs(metrics[k_] - v) / (FNERF_LOSS_TOL * max(abs(v), 1e-12))
-                       for k_, v in m_cpu.items())
-            ratios = {n: ((grads[n] - gw).abs().max() / (FNERF_GRAD_TOL * gw.abs().max()
-                                                          + 1e-30)).item()
-                      for n, gw in g_cpu.items()}
-            name = max(ratios, key=ratios.get)
-            return loss, ratios[name], name
+            """(worst loss gap over LOSS_TOL, worst gradient gap over
+            GRAD_TOL, its tensor): 1 is the bound (update_gaps)."""
+            g = update_gaps(torch, {"losses": got[1], "grads": got[0]},
+                            {"losses": m_cpu, "grads": g_cpu}, 0.0)
+            return g["loss"]["of_tol"], g["grad"]["of_tol"], g["grad"]["name"]
 
         with deterministic_algorithms(torch) as nondeterministic_ops:
             card_run = first_step(dev)
@@ -1975,8 +2002,8 @@ def featurenerf_phase(torch, np, dev, card):
         repeat_gap = max((card_run[0][n] - repeat[0][n]).abs().max().item() for n in g_cpu)
         emit("featurenerf_grad", src_ord=list(FNERF_SRC3), loss_card=card_run[1]["loss"],
              loss_cpu=m_cpu["loss"], loss_gap_of_tol=loss_gap, grad_gap_of_tol=grad_gap,
-             worst_tensor=worst_t, tensors=len(g_cpu), loss_tol=FNERF_LOSS_TOL,
-             grad_tol=FNERF_GRAD_TOL, repeat_gap=repeat_gap, card_step_ms=card_run[2],
+             worst_tensor=worst_t, tensors=len(g_cpu), loss_tol=LOSS_TOL,
+             grad_tol=GRAD_TOL, repeat_gap=repeat_gap, card_step_ms=card_run[2],
              cpu_step_ms=cpu_ms, nondeterministic_ops=nondeterministic_ops,
              planted={f: {"loss_gap_of_tol": lg, "grad_gap_of_tol": gg, "worst_tensor": n}
                       for f, (lg, gg, n) in faults.items()}, card=card)
@@ -2024,6 +2051,515 @@ def featurenerf_phase(torch, np, dev, card):
         fail(f"featurenerf_eval: frames {frames}, embed {emb.shape}")
     if not (np.isfinite(rgb).all() and 0.0 <= rgb.min() and rgb.max() <= 1.0):
         fail("featurenerf_eval: rgb outside [0, 1]")
+    return state, np.concatenate([sc.images for sc in scenes])
+
+
+def record_grads(torch, optimizers):
+    """Wrap each (label, Optimizer)'s step to keep the gradients it steps
+    on, as float64 CPU tensors under "label:name"; returns that dict."""
+    log = {}
+    for label, opt in optimizers:
+        def recording(opt=opt, label=label, step=opt.step):
+            for n, p in zip(opt.names, opt.params):
+                if p.grad is not None:
+                    log[f"{label}:{n}"] = p.grad.detach().double().cpu()
+            return step()
+        opt.step = recording
+    return log
+
+
+def named_cpu(modules):
+    """{prefix.name: float64 CPU copy} of the parameters and buffers of
+    (prefix, module) pairs."""
+    return {f"{pre}.{n}": v.detach().double().cpu()
+            for pre, m in modules for n, v in m.state_dict().items()}
+
+
+def exact_bias_grads(torch, module):
+    """Forward hooks on every Dense, Conv3d and ConvTranspose3d of `module`
+    that has a bias: each keeps the float64 sum of its output's gradient
+    over every axis but the last, which is the bias's gradient summed
+    exactly. Returns the dict they fill ("<module>.bias") and the hooks'
+    handles."""
+    from real_robot_nerf_actor_tpu_torch.models.blocks import Conv3d, ConvTranspose3d, Dense
+    store, handles = {}, []
+
+    def keep(name, g):
+        s = g.double().sum(dim=tuple(range(g.dim() - 1))).cpu()
+        store[name] = store.get(name, 0) + s
+
+    for name, m in module.named_modules():
+        if isinstance(m, (Dense, Conv3d, ConvTranspose3d)) and m.bias is not None:
+            def hook(mod, inp, out, name=f"{name}.bias"):
+                if out.requires_grad:
+                    out.register_hook(lambda g: keep(name, g))
+            handles.append(m.register_forward_hook(hook))
+    return store, handles
+
+
+def move_one_ulp(torch, tensors, sign):
+    """Move every entry of `tensors` one ulp: up or down by a seeded coin
+    per entry, every coin turned over when sign < 0."""
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for p in tensors:
+            up = (torch.rand(p.shape, generator=g) < 0.5) == (sign > 0)
+            p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf).to(p)))
+
+
+@contextlib.contextmanager
+def tf32(torch, on):
+    """TF32 in cuBLAS and cuDNN inside the block (when on): a planted fault,
+    fp32 products at a 10-bit mantissa."""
+    if on:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def update_gaps(torch, card, cpu, lr, slack=None):
+    """The card's first update against the CPU's, as ratios to their bounds
+    (1 is the bound), each with the worst name. Losses: LOSS_TOL relative.
+    Gradients: e = GRAD_TOL of the tensor's largest |g|, plus slack[name]
+    where given; a gradient that a side did not take counts as zeros there.
+    Parameters after the step: 1e-6 relative plus 2e-5 lr, plus lr * min(2,
+    2 e / |g|) for each gradient g that stepped the entry (Adam's step of an
+    entry turns with the relative error of its gradient: a first step is lr
+    * sign(g)). Outputs: FWD_TOL of their largest |value|."""
+    slack = slack or {}
+    by_name = {}
+    for k, g in cpu["grads"].items():
+        by_name.setdefault(k.split(":")[-1], []).append((g, slack.get(k, 0.0)))
+    gaps = {"loss": {k: abs(card["losses"][k] - v) / (LOSS_TOL * max(abs(v), 1e-12))
+                     for k, v in cpu["losses"].items()},
+            "grad": {}, "param": {},
+            "output": {n: ((card["outputs"][n] - w).abs().max()
+                           / (FWD_TOL * w.abs().max() + 1e-30)).item()
+                       for n, w in cpu.get("outputs", {}).items()}}
+    for n in set(cpu["grads"]) | set(card["grads"]):
+        if not n.endswith(INVARIANT):
+            w, g = cpu["grads"].get(n), card["grads"].get(n)
+            w = torch.zeros_like(g) if w is None else w
+            g = torch.zeros_like(w) if g is None else g
+            tol = GRAD_TOL * w.abs().max() + slack.get(n, 0.0) + 1e-30
+            gaps["grad"][n] = ((g - w).abs() / tol).max().item()
+    for n, w in cpu.get("params", {}).items():
+        if n.endswith(INVARIANT):
+            continue
+        tol = 1e-6 * w.abs() + 2e-5 * lr
+        for g, extra in by_name.get(n, []) + by_name.get(n.split(".", 1)[1], []):
+            if g.shape == w.shape:
+                e = GRAD_TOL * g.abs().max() + extra
+                tol = tol + lr * torch.clamp(2 * e / g.abs().clamp_min(1e-30), max=2.0)
+        gaps["param"][n] = ((card["params"][n] - w).abs() / tol).max().item()
+    return {k: {"of_tol": d[max(d, key=d.get)], "name": max(d, key=d.get)}
+            for k, d in gaps.items() if d}
+
+
+def passes(gaps):
+    return all(g["of_tol"] <= 1.0 for g in gaps.values())
+
+
+def timed_profile(torch, fn, warmup, steps, profiles=None):
+    """p50 host ms of `steps` calls after `warmup` (each synchronised), the
+    peak memory over them, and one call under torch.profiler: device ms,
+    busy share, device events, top kernels (the profile appended to
+    `profiles` where given)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup + steps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    if profiles is not None:
+        profiles.append(prof)
+    rows = device_rows(torch, prof)
+    device_ms = sum(r[1] for r in rows)
+    return dict(p50_ms=statistics.median(times), ms=times, peak_mem_gb=peak,
+                device_ms=device_ms, device_busy_share=device_ms / wall,
+                device_events=sum(r[2] for r in rows),
+                top_kernels=[{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:8]])
+
+
+def bc_phase(torch, np, dev, card, fnerf_state, fnerf_views):
+    """Phase 10: behaviour cloning and RL over the representation zoo, at
+    full width with seed-drawn weights (no pretrained checkpoint is in the
+    repository), fp32 with TF32 off.
+
+    a. BCTrainer at BCConfig's defaults (batch 64, MLP head 256, Adam 3e-4)
+       on 224 x 224 images: resnet50 fine-tuned (its BatchNorm running
+       statistics trained) and frozen, dino (ViT-S/8, 785 tokens) and mvp
+       (ViT-B/16) frozen;
+    b. featurenerf: the encoder phase 9 trained (featurenerf_encoder_
+       variables) fine-tuned on that phase's 128 x 128 views in [-1, 1];
+    c. pointnet2 fine-tuned on 64 clouds of 4096 x 6 (_stack_obs's cap);
+    d. DiffusionBC on resnet50 features (obs_dim 2048): an update and a
+       100-step sample of the batch; one DiffusionQL.update_ql;
+    e. SAC on 64 x 64 x 3 pixels, batch 128, from a seeded
+       PrioritizedReplayBuffer: SAC_UPDATES updates (actor and target steps
+       fire on every second one);
+    f. two seeded point-cloud episodes through save_trajectory /
+       EpisodeDataset into PerActTrainer of configs/peract.yaml with
+       conv_backend "pallas": conv3d_k3 and its VJP must launch every step;
+    g. extract_clip_features: the RN50 visual tower at 224 x 224, batch 8.
+    Each part's first update (d: each of the three calls; g: the forward)
+    on the card is held to the same on the CPU (update_gaps, with the
+    same weights, inputs and draws). The fine-tunes (a, b, c) and f widen
+    each gradient's bound by ULP_K times its response on the CPU to a
+    one-ulp move of every weight (a, b, c: up and down, for max-pools over
+    near-ties; f: the spatial softmax at T = 0.01); f's CPU reference takes each bias's
+    gradient as the float64 sum of its output gradient. Planted
+    faults must fail that check: the fine-tunes with the statistics left
+    frozen and with TF32 on for the card's run, (e)'s actor gradient let
+    into the encoder, and (f)'s conv3d_k3 VJP scaled by 1.01. Each line
+    gives p50 and device ms per update, the busy share, the top kernels and
+    peak memory; g's line the phase's wall time and its CPU references'
+    share."""
+    import tempfile
+
+    from real_robot_nerf_actor_tpu_torch.data.demos import Trajectory
+    from real_robot_nerf_actor_tpu_torch.data.episodes import EpisodeDataset, save_trajectory
+    from real_robot_nerf_actor_tpu_torch.data.synthetic import make_synthetic_scene
+    from real_robot_nerf_actor_tpu_torch.models.blocks import init_weights
+    from real_robot_nerf_actor_tpu_torch.models.clip_visual import ClipVisualResNet
+    from real_robot_nerf_actor_tpu_torch.models.representations import (
+        featurenerf_encoder_variables)
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_cuda
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.rl import PrioritizedReplayBuffer, SACAgent, SACConfig
+    from real_robot_nerf_actor_tpu_torch.rl import diffusion_bc, sac
+    from real_robot_nerf_actor_tpu_torch.train import bc
+    from real_robot_nerf_actor_tpu_torch.train.distill2d import extract_clip_features
+    from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig, PerActTrainer
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    cpu = torch.device("cpu")
+    cpu_total = [0.0]     # seconds of the CPU references, for the phase's card time
+
+    B = BC_BATCH
+    images = rng.uniform(0, 1, (B, BC_HW, BC_HW, 3)).astype(np.float32)
+    actions = rng.uniform(-1, 1, (B, 4)).astype(np.float32)
+
+    def check(part, first, lr, faults=(), ulp=()):
+        """first(device, fault) -> the update's record; fails unless the
+        card holds to the CPU and every planted fault does not. ulp, of
+        "ulp_up" and "ulp_down": each gradient's bound widens by ULP_K times
+        the largest change that first(cpu, move) makes in it (every weight
+        moved one ulp by seeded coins, or with the coins turned over: one of
+        the two flips a max whose top two lie within rounding)."""
+        t0 = time.perf_counter()
+        want = first(cpu, None)
+        out, slack = {}, None
+        if ulp:
+            moved = [first(cpu, f)["grads"] for f in ulp]
+            slack = {n: ULP_K * max((w - m[n]).abs().max() for m in moved)
+                     for n, w in want["grads"].items()}
+            ratios = {n: (slack[n] / (GRAD_TOL * w.abs().max() + 1e-30)).item()
+                      for n, w in want["grads"].items()}
+            out["ulp_slack_of_grad_tol"] = dict(sorted(ratios.items(), key=lambda kv: -kv[1])[:4])
+        cpu_s = time.perf_counter() - t0
+        cpu_total[0] += cpu_s
+        got = first(dev, None)
+        gaps = update_gaps(torch, got, want, lr, slack=slack)
+        if ulp:
+            out["grad_gap_unwidened"] = update_gaps(torch, got, want, lr)["grad"]
+        planted = {}
+        for f in faults:
+            with tf32(torch, f == "tf32"):
+                planted[f] = update_gaps(torch, first(dev, f), want, lr, slack=slack)
+        gc.collect()    # the trainers' recording wrappers hold them in cycles
+        torch.cuda.empty_cache()
+        if not passes(gaps):
+            fail(f"bc {part}: the card's first update against the CPU's: {gaps}")
+        for f, g in planted.items():
+            if passes(g):
+                fail(f"bc {part}: the check does not see the planted fault {f}: {g}")
+        return dict(first_update_gaps=gaps, planted=planted, cpu_reference_s=cpu_s, **out)
+
+    # -------------------------------------------------- a, b, c: BC updates
+    def bc_part(part, name, obs, acts, freeze, encoder_sd=None, note=None):
+        cfg = bc.BCConfig(embedding=name, freeze_encoder=freeze)
+
+        def trainer(device, fault):
+            restore = bc.train_statistics_
+            if fault == "statistics_frozen":
+                bc.train_statistics_ = lambda module: []
+            try:
+                tr = bc.BCTrainer(cfg, obs[0], seed=0, device=device)
+            finally:
+                bc.train_statistics_ = restore
+            if encoder_sd is not None:
+                tr.encoder.load_state_dict(encoder_sd)
+            return tr
+
+        init = trainer(cpu, None)
+        init = {"policy": init.policy.state_dict(), "encoder": init.encoder.state_dict()}
+
+        def first(device, fault):
+            tr = trainer(device, fault)
+            tr.policy.load_state_dict(init["policy"])
+            tr.encoder.load_state_dict(init["encoder"])
+            if fault in ("ulp_up", "ulp_down"):
+                move_one_ulp(torch, [t for _, t in tr.trainable()], 1 if fault == "ulp_up" else -1)
+            grads = record_grads(torch, [("adam", tr.optimizer)])
+            loss = tr.update(obs, acts)
+            return {"losses": {"loss": loss}, "grads": grads,
+                    "params": named_cpu([("policy", tr.policy), ("encoder", tr.encoder)])}
+
+        res = check(part, first, cfg.lr, () if freeze else ("statistics_frozen", "tf32"),
+                    ulp=() if freeze else ("ulp_up", "ulp_down"))
+        tr = trainer(dev, None)
+        x = torch.as_tensor(obs, device=dev)
+        a = torch.as_tensor(acts, device=dev)
+        losses = []
+        timing = timed_profile(torch, lambda: losses.append(tr.update(x, a)), BC_WARMUP,
+                               BC_STEPS)
+        emit("bc", part=part, embedding=name, freeze_encoder=freeze, obs_shape=list(obs.shape),
+             batch=len(obs), head="mlp", hidden=cfg.hidden_dim, lr=cfg.lr,
+             trained_statistics=0 if freeze else len(bc.train_statistics_(tr.encoder)),
+             losses=losses, note=note, **timing, **res, card=card)
+        if not all(map(math.isfinite, losses)):
+            fail(f"bc {part}: non-finite loss {losses}")
+        return tr
+
+    tr50 = bc_part("a", "resnet50", images, actions, False)
+    del tr50
+    tr50 = bc_part("a", "resnet50", images, actions, True)
+    with torch.no_grad():
+        feats = tr50.embedding(torch.as_tensor(images, device=dev)).cpu().numpy()
+    del tr50
+    for name in ("dino", "mvp"):
+        bc_part("a", name, images, actions, True)
+    views = fnerf_views[:B] * 2.0 - 1.0
+    bc_part("b", "featurenerf", views, actions[:len(views)], False,
+            encoder_sd=featurenerf_encoder_variables(fnerf_state),
+            note=f"{len(views)} of phase 9's views (its 8 scenes x 12)")
+    clouds = rng.uniform(-0.5, 0.5, (B, 4096, 6)).astype(np.float32)
+    bc_part("c", "pointnet2", clouds, actions, False,
+            note="farthest-point sampling and ball query in plain torch")
+
+    # ------------------------------------------------------ d: diffusion
+    g = torch.Generator().manual_seed(3)
+    dcfg = diffusion_bc.DiffusionBCConfig(obs_dim=feats.shape[1], action_dim=4)
+    T = dcfg.n_timesteps
+    draws = {"t": torch.randint(0, T, (B,), generator=g), "eps": torch.randn(B, 4, generator=g)}
+    x0, noise = torch.randn(B, 4, generator=g), torch.randn(T, B, 4, generator=g)
+    next_feats = np.roll(feats, 1, axis=0)
+    reward = rng.standard_normal(B).astype(np.float32)
+    not_done = (rng.uniform(size=B) > 0.1).astype(np.float32)
+    ql_draws = dict(draws, next_x=x0, next_noise=noise, new_x=torch.randn(B, 4, generator=g),
+                    new_noise=torch.randn(T, B, 4, generator=g), coin=True)
+
+    def dbc_first(device, fault):
+        ag = diffusion_bc.DiffusionBC(dcfg, seed=0, device=device)
+        grads = record_grads(torch, [("adam", ag.optimizer)])
+        loss = ag.update(feats, actions, **draws)
+        sample = torch.as_tensor(ag.sample_action(feats, x=x0, noise=noise)).double()
+        return {"losses": {"loss": loss}, "grads": grads, "params": named_cpu([("net", ag.net)]),
+                "outputs": {"sample_100_steps": sample}}
+
+    def ql_first(device, fault):
+        qcfg = diffusion_bc.DiffusionQLConfig(obs_dim=feats.shape[1], action_dim=4)
+        ag = diffusion_bc.DiffusionQL(qcfg, seed=0, device=device)
+        grads = record_grads(torch, [("actor", ag.optimizer), ("critic", ag.critic_optimizer)])
+        m = ag.update_ql(feats, actions, next_feats, reward, not_done, draws=ql_draws)
+        return {"losses": m, "grads": grads,
+                "params": named_cpu([("net", ag.net), ("ema", ag.ema), ("critic", ag.critic),
+                                     ("critic_target", ag.critic_target)])}
+
+    res_d = check("d", dbc_first, dcfg.lr)
+    res_ql = check("d_ql", ql_first, dcfg.lr)
+    ag = diffusion_bc.DiffusionBC(dcfg, seed=0, device=dev)
+    fd, ad = torch.as_tensor(feats, device=dev), torch.as_tensor(actions, device=dev)
+    upd = timed_profile(torch, lambda: ag.update(fd, ad), BC_WARMUP, BC_STEPS)
+    smp = timed_profile(torch, lambda: ag.sample_action(fd), 1, 3)
+    ql = diffusion_bc.DiffusionQL(diffusion_bc.DiffusionQLConfig(obs_dim=feats.shape[1]),
+                                  seed=0, device=dev)
+    nfd = torch.as_tensor(next_feats, device=dev)
+    qlt = timed_profile(torch, lambda: ql.update_ql(fd, ad, nfd, reward, not_done), 1, 3)
+    emit("bc", part="d", head="diffusion", obs_dim=feats.shape[1], batch=B, n_timesteps=T,
+         features="resnet50 (frozen, part a's batch)", update=upd, sample_100_steps=smp,
+         update_ql=qlt, **res_d, ql_first_update_gaps=res_ql["first_update_gaps"],
+         ql_cpu_reference_s=res_ql["cpu_reference_s"], card=card)
+    del ag, ql
+
+    # ----------------------------------------------------------- e: SAC
+    scfg = SACConfig(obs_type="image")
+    buf = PrioritizedReplayBuffer(4 * SAC_BATCH, (SAC_HW, SAC_HW, 3), scfg.action_dim, seed=0)
+    frames = rng.uniform(0, 1, (4 * SAC_BATCH + 1, SAC_HW, SAC_HW, 3)).astype(np.float32)
+    for i in range(4 * SAC_BATCH):
+        buf.add(frames[i], rng.uniform(-1, 1, scfg.action_dim), rng.standard_normal(),
+                frames[i + 1], i % 50 == 49)
+    batch0 = buf.sample(SAC_BATCH)
+    eps0 = {k: torch.randn(SAC_BATCH, scfg.action_dim, generator=g) for k in ("critic", "actor")}
+
+    def leaky_actor_loss(self, obs, eps):
+        mu, log_std = self.net.actor(self.net.encode(obs))     # not detached
+        a, logp = sac._squash(mu, log_std, eps)
+        with sac._no_grad_into(self.net.critic, self.net.encoder):
+            q1, q2 = self.net.q(obs, a)
+        return (torch.exp(self.log_alpha.detach()) * logp - torch.minimum(q1, q2)).mean(), logp
+
+    def sac_first(device, fault):
+        restore = SACAgent.actor_loss
+        if fault == "actor_gradient_in_encoder":
+            SACAgent.actor_loss = leaky_actor_loss
+        try:
+            ag = SACAgent(scfg, frames[0], seed=0, device=device)
+            grads = record_grads(torch, [("critic", ag.critic_opt), ("actor", ag.actor_opt),
+                                         ("alpha", ag.alpha_opt)])
+            m = ag.update(batch0, eps=eps0)
+        finally:
+            SACAgent.actor_loss = restore
+        params = named_cpu([("net", ag.net), ("target", ag.target)])
+        params["alpha.log_alpha"] = ag.log_alpha.detach().double().cpu()
+        return {"losses": {k: m[k] for k in ("critic_loss", "actor_loss", "alpha")},
+                "grads": grads, "params": params}
+
+    res_e = check("e", sac_first, scfg.critic_lr, ("actor_gradient_in_encoder",))
+    ag = SACAgent(scfg, frames[0], seed=0, device=dev)
+    fired = {"actor": 0, "target": 0}
+
+    def sac_update():
+        target_step = ag._step % scfg.target_update_freq == 0
+        b = buf.sample(SAC_BATCH)
+        m = ag.update(b)
+        buf.update_priorities(b["idx"], m["td_abs"])
+        fired["actor"] += "actor_loss" in m
+        fired["target"] += target_step
+
+    timing = timed_profile(torch, sac_update, 2, SAC_UPDATES)
+    emit("bc", part="e", agent="SAC", obs_shape=[SAC_HW, SAC_HW, 3], batch=SAC_BATCH,
+         updates=3 + SAC_UPDATES, steps_fired=fired, **timing, **res_e,
+         note="p50 per update includes the host's prioritized sampling and the batch upload",
+         card=card)
+    if not (fired["actor"] > 0 and fired["target"] > 0):
+        fail(f"bc e: actor / target steps fired {fired}")
+    del ag
+
+    # ------------------------------------------------- f: episodes -> PerAct
+    base = from_dict(PerActConfig, PERACT)
+    bounds = base.coord_bounds
+    scene = make_synthetic_scene(seed=5)
+    with tempfile.TemporaryDirectory() as root:
+        for e in range(2):
+            er = np.random.default_rng(100 + e)
+            steps = 10
+            ee = np.asarray(scene.box_centers[e % len(scene.box_centers)]) + np.cumsum(
+                er.normal(0, 0.01, (steps, 3)), axis=0)
+            ee[6] = ee[5]                                              # a stop
+            obs = [{"points": scene.points + er.normal(0, 1e-3, scene.points.shape).astype(
+                        np.float32), "colors": (scene.colors + 1.0) / 2.0} for _ in range(steps)]
+            save_trajectory(f"{root}/ep{e}.npz", Trajectory(
+                obs, list(er.uniform(-1, 1, (steps, 4))), [0.0] * steps,
+                list(np.where(np.arange(steps) < 3, 1.0, 0.0)), list(ee), True))
+        ds = EpisodeDataset(root, bounds, voxel_size=base.model.voxel_size,
+                            rotation_resolution=base.rotation_resolution,
+                            max_num_coords=base.voxelizer.max_num_coords)
+    batches = ds.batches(batch_size=1, seed=0, device=dev)
+    draws_f = torch.tensor([[0.37, -0.61, 0.18]])
+
+    def peract_cfg(dtype):
+        return dataclasses.replace(base, model=dataclasses.replace(
+            base.model, conv_backend="pallas", compute_dtype=dtype))
+
+    host = ds.get(0)
+
+    def scaled_vjp(*args, **kw):
+        return tuple(None if t is None else t * 1.01 for t in vjp(*args, **kw))
+
+    def peract_first(device, fault):
+        tr = PerActTrainer(peract_cfg("float32"), device=device)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        if fault in ("ulp_up", "ulp_down"):
+            move_one_ulp(torch, state.module.parameters(), 1 if fault == "ulp_up" else -1)
+        grads = record_grads(torch, [("adamw", state.optimizer)])
+        exact, handles = exact_bias_grads(torch, state.module)
+        if fault == "vjp_scaled":
+            conv3d_cuda.conv3d_k3_vjp = scaled_vjp
+        try:
+            state, m = tr.train_step(state, {k: torch.as_tensor(v[None], device=device)
+                                             for k, v in host.items()}, draws=draws_f.to(device))
+        finally:
+            conv3d_cuda.conv3d_k3_vjp = vjp
+            for h in handles:
+                h.remove()
+        if fault is None:
+            sum_gap[device.type] = max((((grads[f"adamw:{n}"] - v).abs().max()
+                                         / (v.abs().max() + 1e-30)).item(), n)
+                                       for n, v in exact.items() if not n.endswith(INVARIANT))
+        # the CPU's conv_transpose3d sums its bias gradient over the 10^6
+        # voxels in fp32 ~1e-3 of the gradient's scale off the exact sum
+        # (sum_gap): the reference takes every bias's gradient as the
+        # float64 sum of its fp32 output gradient; the card keeps its own
+        if device == cpu:
+            grads.update({f"adamw:{n}": v for n, v in exact.items()})
+        return {"losses": {"loss": m["loss"].item()}, "grads": grads,
+                "params": named_cpu([("net", state.module)])}
+
+    vjp = conv3d_cuda.conv3d_k3_vjp
+    sum_gap = {}    # per side: its fp32 bias gradients off their float64 sums, of scale
+    # one move: nothing in the step takes a max over near-ties
+    res_f = check("f", peract_first, base.train.optim.lr, ("vjp_scaled",), ulp=("ulp_up",))
+    tr = PerActTrainer(peract_cfg(base.model.compute_dtype), device=dev)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    counts = {"conv3d_k3": 0, "conv3d_k3_vjp": 0}
+    losses = []
+
+    def peract_step():
+        b = next(batches)
+        conv3d_k3.launches = conv3d_k3.vjp_calls = 0
+        _, m = tr.train_step(state, b, draws=draws_f.to(dev))
+        losses.append(m["loss"].item())
+        counts["conv3d_k3"] += conv3d_k3.launches
+        counts["conv3d_k3_vjp"] += conv3d_k3.vjp_calls
+
+    profiles = []
+    timing = timed_profile(torch, peract_step, 1, 4, profiles)
+    by_name = kernel_counts(profiles[0])
+    n = 6
+    emit("bc", part="f", episodes=2, keyframe_pairs=len(ds), compute_dtype=base.model.compute_dtype,
+         conv_backend="pallas", voxel_size=base.model.voxel_size,
+         max_num_coords=base.voxelizer.max_num_coords, launches=counts, steps=n, losses=losses,
+         profiled_step_kernels={k: v for k, v in by_name.items() if v},
+         check_dtype="float32", fp32_bias_sum_gap=sum_gap,
+         timed_step_held_by="phase 6 (train): the bf16 kernel step "
+         "against the plain conv's, from the same weights", **timing, **res_f, card=card)
+    if counts != {"conv3d_k3": n, "conv3d_k3_vjp": n} or by_name["conv3d_k3"] != 1:
+        fail(f"bc f: launches {counts} over {n} steps, want {n} of each; the profiled "
+             f"step's kernels {by_name}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"bc f: non-finite loss {losses}")
+    del tr, state
+
+    # ------------------------------------------------------------- g: CLIP
+    clip_cpu = init_weights(ClipVisualResNet(), torch.Generator().manual_seed(0)).eval()
+    clip = copy.deepcopy(clip_cpu).to(dev)
+    imgs = images[:CLIP_BATCH]
+    got = extract_clip_features(clip, imgs)
+    t0 = time.perf_counter()
+    want = extract_clip_features(clip_cpu, imgs)
+    cpu_total[0] += time.perf_counter() - t0
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    timing = timed_profile(torch, lambda: extract_clip_features(clip, imgs), 1, 5)
+    emit("bc", part="g", tower="CLIP RN50 visual", batch=CLIP_BATCH, feature_shape=list(got.shape),
+         max_err_of_scale=err, tol=FWD_TOL, **timing, phase_wall_s=time.perf_counter() - t_phase,
+         phase_cpu_reference_s=cpu_total[0], card=card)
+    if got.shape != (CLIP_BATCH, BC_HW // 32, BC_HW // 32, 2048) or not err <= FWD_TOL:
+        fail(f"bc g: extract_clip_features {got.shape}, card vs CPU {err} of scale")
 
 
 def mlp_err(got, want):
@@ -2427,9 +2963,13 @@ def main():
     replay_phase(torch, dev, card)
 
     # ------------------------------------------------------ 9. featurenerf
-    featurenerf_phase(torch, np, dev, card)
+    fnerf_state, fnerf_views = featurenerf_phase(torch, np, dev, card)
 
-    # ------------------------------------------------------ 10. summary
+    # --------------------------------------------------------------- 10. bc
+    bc_phase(torch, np, dev, card, fnerf_state, fnerf_views)
+    del fnerf_state
+
+    # ------------------------------------------------------ summary
     info = {
         "flash_attention": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/flash_attention.cu",
                             "real_robot_nerf_actor_tpu/ops/attention_pallas.py:70"),

@@ -31,6 +31,18 @@ the moments' tree is the joint params tree. The CLIP text tower maps by
 `clip_text_to_state_dict`. The FeatureNeRF field (2-D encoder with
 BatchNorm statistics, ResnetFC) maps by `pixelnerf_to_state_dict`; the
 DINO ViT and the 2-D student map by `flax_to_state_dict` as they are.
+
+The BC / RL slice keeps flax's scope names too, so each of its models maps
+by `flax_to_state_dict` of the JAX package's variables ({"params": ...,
+"batch_stats": ...} as numpy arrays), held by tests/test_torch_zoo.py and
+test_torch_bc_rl.py: `TorchvisionResNet`, `PointNet2Encoder`,
+`ClipVisualResNet` (the attention pool's `positional_embedding` as it is),
+the module of every `make_embedding` entry, `ContinuousPolicy`, `NoiseMLP`
+and `TwinCritic` (DiffusionBC / DiffusionQL: params, ema_params,
+critic_params and critic_target each into its module), and SAC's nets
+(the agent's params and target_params into `SACAgent.net` / `.target`;
+log_alpha is a scalar). Torch-layout checkpoints (torchvision, MoCo v2,
+pointnet2_cls, OpenAI CLIP, MAE) map by the converters beside each model.
 """
 from __future__ import annotations
 

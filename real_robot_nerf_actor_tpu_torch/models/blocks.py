@@ -197,7 +197,13 @@ class BatchNorm(nn.Module):
     both; then y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and the
     running statistics become m * running + (1 - m) * batch (flax's
     momentum m; torch's is its complement, and `F.batch_norm` would update
-    with the unbiased variance)."""
+    with the unbiased variance).
+
+    `train_statistics_` makes the running statistics trainable leaves, as
+    the JAX package's BC fine-tune differentiates and Adam-steps its
+    `batch_stats`: forward(x, train=False) then computes flax's inference
+    arithmetic, y = (x - mean) * (rsqrt(var + eps) * scale) + bias, with the
+    gradient flowing into the mean and the variance."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -209,6 +215,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x, train: bool = False):
+        if not train and self.running_mean.requires_grad:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * mul + self.bias
         if not train:
             y = F.batch_norm(x.movedim(-1, 1), self.running_mean, self.running_var,
                              self.weight, self.bias, training=False, eps=self.eps)
@@ -223,6 +232,19 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
+def train_statistics_(module: nn.Module):
+    """Make the running mean and variance of every BatchNorm in `module`
+    trainable leaves (requires_grad, still buffers: the state_dict keeps
+    their names). Returns them as (name, tensor) pairs, for an optimizer."""
+    out = []
+    for name, m in module.named_modules():
+        if isinstance(m, BatchNorm):
+            for leaf in ("running_mean", "running_var"):
+                t = getattr(m, leaf).requires_grad_(True)
+                out.append((f"{name}.{leaf}" if name else leaf, t))
+    return out
 
 
 class DenseBlock(nn.Module):

@@ -18,8 +18,8 @@ features are this teacher's, not semantic DINO features. The weights come
 from a `torch.Generator`, so the same seed gives another teacher than the
 JAX package's `jax.random.key(seed)`. `--vit-ckpt` takes a DINO torch
 checkpoint (a `torch.save` state_dict or an npz of its arrays, timm names)
-through `convert_torch_dino_weights`. Not ported: `extract_clip_features`
-(it needs `models/clip_visual.py`).
+through `convert_torch_dino_weights`. `extract_clip_features` dumps the
+CLIP visual tower's prepool maps (models/clip_visual.py).
 
     python -m real_robot_nerf_actor_tpu_torch.train.distill2d --data-root DIR --pca 0
 """
@@ -78,6 +78,20 @@ def extract_teacher_features(vit: DinoViT, images: np.ndarray, feature_layer: in
         from real_robot_nerf_actor_tpu_torch.utils.pca import pca_fit_transform
         feats = pca_fit_transform(feats, pca_components)
     return feats.float().cpu().numpy(), attn.float().cpu().numpy()
+
+
+@torch.no_grad()
+def extract_clip_features(clip, images: np.ndarray) -> np.ndarray:
+    """The reference's CLIP dumper: images (N, H, W, 3) in [0, 1],
+    normalised with CLIP's mean and std, through a ClipVisualResNet (on its
+    device; weights from clip_visual.convert_clip_visual_weights) -> its
+    prepool maps (N, H/32, W/32, 2048) as fp32 numpy."""
+    from real_robot_nerf_actor_tpu_torch.models.clip_visual import CLIP_MEAN, CLIP_STD
+    mean = np.asarray(CLIP_MEAN, np.float32)
+    std = np.asarray(CLIP_STD, np.float32)
+    x = (np.asarray(images, np.float32) - mean) / std
+    dev = next(clip.parameters()).device
+    return clip(torch.as_tensor(x, device=dev)).float().cpu().numpy()
 
 
 def load_teacher(cfg: ViTConfig, device, seed: int = 0,

@@ -274,6 +274,13 @@ class Optimizer:
                 "exp_avg_sq": nu[name].to(p.device, p.dtype).clone()}
 
 
+def adam(lr: float, named_params: Iterable[Tuple[str, torch.Tensor]]) -> Optimizer:
+    """optax.adam(lr) as an Optimizer: no weight decay, no clipping, no
+    non-finite check."""
+    return Optimizer(OptimConfig(lr=lr, name="adam", weight_decay=0.0, skip_nonfinite=0),
+                     named_params)
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int

@@ -408,3 +408,99 @@ def test_chip_smoke_trains_featurenerf_yaml():
                                                                         str(path))
     assert cs.FEATURENERF_OVERRIDE == {"z_near": 1.2, "z_far": 4.0}
     assert cs.FNERF_TEACHER["embed_dim"] == cs.FEATURENERF["model"]["d_embed"]
+
+
+def test_bc_rl_entry_points_refuse_missing_cuda(monkeypatch):
+    """BCTrainer, SACAgent, DiffusionBC / DiffusionQL, a zoo entry's init
+    and EpisodeDataset.batches default to CUDA and raise without it."""
+    from real_robot_nerf_actor_tpu_torch.data.demos import Trajectory
+    from real_robot_nerf_actor_tpu_torch.data.episodes import EpisodeDataset
+    from real_robot_nerf_actor_tpu_torch.models.representations import make_embedding
+    from real_robot_nerf_actor_tpu_torch.rl import diffusion_bc, sac
+    from real_robot_nerf_actor_tpu_torch.train import bc
+    obs = np.zeros((8, 8, 3), np.float32)
+    cloud = {"points": np.zeros((4, 3), np.float32), "colors": np.zeros((4, 3), np.float32)}
+    tr = Trajectory([cloud] * 3, [np.zeros(4)] * 3, [0.0] * 3, [1.0, 0.0, 0.0],
+                    [np.zeros(3)] * 3, True)
+    ds = EpisodeDataset([tr], (-1, -1, -1, 1, 1, 1), voxel_size=10, max_num_coords=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: bc.BCTrainer(bc.BCConfig(), obs),
+                 lambda: sac.SACAgent(sac.SACConfig(obs_type="image"), obs),
+                 lambda: diffusion_bc.DiffusionBC(diffusion_bc.DiffusionBCConfig()),
+                 lambda: diffusion_bc.DiffusionQL(diffusion_bc.DiffusionQLConfig()),
+                 lambda: make_embedding("simple").init(obs[None]),
+                 lambda: next(ds.batches())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_bc_rl_modules_run_without_jax(tmp_path):
+    """In a process where jax, flax, optax and the JAX package cannot be
+    imported: every module of the BC / RL slice imports, and a BC update,
+    a SAC update, a DiffusionQL update and an episode round trip run on
+    the CPU."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np\n"
+        "import real_robot_nerf_actor_tpu_torch.models.clip_visual\n"
+        "import real_robot_nerf_actor_tpu_torch.models.pointnet2\n"
+        "import real_robot_nerf_actor_tpu_torch.models.resnet\n"
+        "from real_robot_nerf_actor_tpu_torch.data import episodes\n"
+        "from real_robot_nerf_actor_tpu_torch.data.demos import Trajectory\n"
+        "from real_robot_nerf_actor_tpu_torch.rl import (PrioritizedReplayBuffer, SACAgent,\n"
+        "    SACConfig, diffusion_bc)\n"
+        "from real_robot_nerf_actor_tpu_torch.train import bc\n"
+        "rng = np.random.default_rng(0)\n"
+        "img = rng.uniform(0, 1, (4, 16, 16, 3)).astype(np.float32)\n"
+        "tr = bc.BCTrainer(bc.BCConfig(embedding='resnet18', hidden_dim=8), img[0], device='cpu')\n"
+        "assert np.isfinite(tr.update(img, rng.uniform(-1, 1, (4, 4))))\n"
+        "ag = SACAgent(SACConfig(obs_type='image', hidden_dim=8), img[0], device='cpu')\n"
+        "buf = PrioritizedReplayBuffer(8, (16, 16, 3), 4)\n"
+        "for i in range(8):\n"
+        "    buf.add(img[i % 4], rng.uniform(-1, 1, 4), 1.0, img[(i + 1) % 4], False)\n"
+        "assert np.isfinite(ag.update(buf.sample(4))['actor_loss'])\n"
+        "ql = diffusion_bc.DiffusionQL(diffusion_bc.DiffusionQLConfig(hidden_dim=8,\n"
+        "    n_timesteps=5), device='cpu')\n"
+        "o = rng.standard_normal((4, 7))\n"
+        "m = ql.update_ql(o, rng.uniform(-1, 1, (4, 4)), o, np.ones(4), np.ones(4))\n"
+        "assert all(np.isfinite(v) for v in m.values())\n"
+        "cl = {'points': np.zeros((6, 3), np.float32), 'colors': np.zeros((6, 3), np.float32)}\n"
+        "t = Trajectory([cl] * 3, [np.zeros(4)] * 3, [0.0] * 3, [1.0, 0.0, 0.0],\n"
+        "               [np.zeros(3)] * 3, True)\n"
+        "episodes.save_trajectory(sys.argv[1] + '/e.npz', t)\n"
+        "ds = episodes.EpisodeDataset(sys.argv[1], (-1, -1, -1, 1, 1, 1), voxel_size=10,\n"
+        "                             max_num_coords=8)\n"
+        "assert next(ds.batches(2, device='cpu'))['points'].shape == (2, 8, 3)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_chip_smoke_has_a_bc_phase():
+    """chip_smoke.py's phase 10 runs the BC / RL slice at its stated sizes:
+    BCConfig's batch, the zoo's full-width encoders, SAC's default image
+    encoder, and the PerAct step of configs/peract.yaml."""
+    import importlib.util
+    import inspect
+    from real_robot_nerf_actor_tpu_torch.train.bc import BCConfig
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    src = inspect.getsource(cs.bc_phase)
+    for name in ('"resnet50"', '"dino"', '"mvp"', '"featurenerf"', '"pointnet2"',
+                 "featurenerf_encoder_variables(", "update_ql(", "sample_action(",
+                 "PrioritizedReplayBuffer(", "save_trajectory(", "EpisodeDataset(",
+                 'conv_backend="pallas"', "extract_clip_features(", "statistics_frozen",
+                 '"tf32"', "actor_gradient_in_encoder", "vjp_scaled"):
+        assert name in src, name
+    assert "bc_phase(" in inspect.getsource(cs.main)
+    assert cs.BC_BATCH == BCConfig().batch_size and cs.BC_HW == 224
+    assert (cs.SAC_BATCH, cs.SAC_HW) == (128, 64)
