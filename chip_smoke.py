@@ -58,8 +58,13 @@ Phases, each reported on its own line:
      (largest gap) and PSNR_MIN of the plain field's (mlp_backend "xla")
      frame. Three planted glue faults (the fine pass dropped, the field's
      rgb halved, sigma read in ray-major instead of sample-major order)
-     must each fail that frame check. One frame of each setting runs under
-     torch.profiler.
+     must each fail that frame check. Then the field's opt-in modes (see
+     proposal_and_quantized_frames): use_proposal on the int8 kernels,
+     unfused and gather-fused, against the plain proposal frame at the same
+     bound; quantized on the plain path (torch._int_mm) against the plain
+     bf16 frame, every quantized layer's outputs against the CPU's on the
+     same rows, and a backward through it that must raise. One frame of
+     each setting runs under torch.profiler.
   5. grad: forward and backward of the `final` conv (100^3, 128 -> 64,
      bf16) and of corner_lerp (65536 x 512 bf16) with the kernel against
      the plain path (a planted fault each must fail the check), the conv's
@@ -82,7 +87,9 @@ Phases, each reported on its own line:
      backward and optimizer, device events, peak memory, losses, launch
      counts; (b)'s first-step gradients against (c)'s within (c)'s own
      bf16-vs-fp32 gap, and two planted lerp faults that must fail that
-     check.
+     check. Then b and c with the field's proposal sampler: p50, device
+     time, launches, and b's first-step gradients and render loss held to
+     c's by the same rule; the coarse embed loss left in must fail it.
   8. replay: training on recorded demos with language (see replay_phase):
      the port writes a multi-kitchen dataset (the 12-layer text tower on
      the card), stages it with multi_replay_data, trains configs/nerfact.yaml
@@ -113,6 +120,14 @@ Phases, each reported on its own line:
      card is held to the CPU's, and planted faults (BatchNorm statistics
      frozen, TF32 on, SAC's actor gradient in its encoder, a scaled conv3d_k3
      VJP) must fail that.
+ 11. teacher: the FeatureNeRF contrastive teacher at full width (see
+     teacher_phase): 8 scenes of 12 views at 128 x 128 with depth; the
+     committed JAX teacher loaded without flax, its features on the card
+     against the CPU and its view invariance; the first step on the card
+     against the CPU (two planted faults must fail that); TEACHER_STEPS
+     steps (p50, device time, the loss falling); the CLI's dump into the
+     scenes and one FeatureNeRF step on them; eval/novel.py --out panels
+     read back; ConvEncoder and ImplicitNet on the card against the CPU.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -254,6 +269,20 @@ SAC_UPDATES = 8
 CLIP_BATCH = 8
 # outputs of a forward on the card within FWD_TOL of the CPU's largest |value|
 FWD_TOL = 1e-4
+# the teacher phase: 8 orbit scenes of 12 views at 128 x 128 with depth,
+# TeacherConfig's defaults (the committed JAX teacher's: d_embed 64, 256
+# pairs, Adam 1e-3, encoder (64, 64, 128, 256) x 2 blocks), TEACHER_STEPS
+# steps of the CLI's loop; ConvEncoder at its reference width on a batch of
+# 8 128 x 128 images; ImplicitNet at pixelNeRF's widths (the positional code
+# and viewdirs, 42 wide, into 5 x 512 with a skip at 3) on 8192 points
+TEACHER_SCENES = dict(n_scenes=8, n_views=12, hw=(128, 128))
+TEACHER_MSGPACK = "artifacts/round5_featurenerf/teacher.msgpack"
+TEACHER_STEPS = 1000
+CONV_ENCODER_BATCH = 8
+IMPLICIT = dict(d_in=42, dims=[512] * 5, d_out=4, skip_in=(3,), points=8192)
+# float64 forward and backward on the card against the CPU, of each tensor's
+# largest |value| (rounding there is ~1e-16 a step)
+F64_TOL = 1e-9
 # fused MLP kernels vs their plain versions: the largest gap within 2^-4 of
 # each output's largest |value|, and at most MLP_SHARE of the outputs more
 # than one bf16 ulp of that scale (2^-8) apart. An fp32 sum that rounds one
@@ -269,6 +298,8 @@ MLP_SHARE = 1e-3
 # is an RMS gap of 0.0056, under a tenth of the mean pixel)
 RGB_TOL = 0.04
 PSNR_MIN = 45.0
+# rows of each quantized layer's input held to the CPU (an int32 matmul there)
+TWIN_ROWS = 4096
 
 
 def fail(msg):
@@ -768,6 +799,8 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             fail(f"render: the frame check does not see the planted fault {name}: {c}")
     if not lit > 0.05:
         fail(f"render: the frame is empty (largest rgb {lit})")
+    proposal_and_quantized_frames(torch, dev, card, make, sd, d0, pose, focal, cuda_gen, occ,
+                                  plan, n_tiles, frames, rgb_x, frame_check)
 
     for label, rend in (("unfused", r), ("gather_fused", r_gf)):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -785,6 +818,136 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
              top=[{"name": nm[:80], "ms": ms, "count": c} for nm, ms, c in rows[:15]],
              card=card)
     return r._packed
+
+
+def proposal_and_quantized_frames(torch, dev, card, make, sd, d0, pose, focal, cuda_gen, occ,
+                                  plan, n_tiles, frames, rgb_x, frame_check):
+    """Phase 4's two opt-in field modes on the same d0, occupancy and plan.
+    (a) use_proposal: the proposal MLP's coarse pass on the plain path, the
+    fine pass on the int8 kernels, unfused and gather-fused, each frame
+    against the plain field's proposal frame (mlp_backend "xla", on the same
+    corner-expanded grid) at the serving bound (RGB_TOL, PSNR_MIN); one
+    launch of each kernel of the path a tile. (b) quantized with mlp_backend "xla" (QuantDense, torch._int_mm):
+    the frame against the plain bf16 frame at the same bound, and every
+    QuantDense output of the first tile against the same layer on the CPU
+    from the same input rows: the scales, the int8 codes and the int32
+    products are exact on both and the rescale is two fp32 products rounded
+    to nearest, so the outputs should agree; the bound is one bf16 ulp at
+    the top of each layer's range (2^-8 of its largest |value|), and the
+    count of values that differ is reported. (c) A backward through the
+    quantized field raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch.models.resnetfc import QuantDense
+    from real_robot_nerf_actor_tpu_torch.ops.quant import quantize_rows
+
+    # (a) the proposal sampler
+    r_p = make(use_proposal=True)
+    sd_p = random_field_state(torch, r_p, seed=1)
+    sd_p.update(sd)                                   # the same full field
+    sd_p["mlp_proposal.lin_out_bias"][3] = 1.0
+    r_p.load_field(sd_p)
+    r_p.calibrate_int8_act(d0, r_p.frame_rays(pose, focal), generator=cuda_gen(3))
+    r_pg = make(use_proposal=True, gather_fused_mlp=True)
+    r_pg.load_field(sd_p)
+    r_pg._int8_act_scales, r_pg._act_scales_t = r_p._int8_act_scales, r_p._act_scales_t
+    # the plain field on the same corner-expanded bf16 grid: with the
+    # proposal the fine pass composites only the 8 samples that the proposal
+    # pass's weights place, so its latent must be the one the kernel renderer
+    # samples (on the plain 8-gather fp32 lookup one pixel moved by 0.114 of
+    # a frame at 51.9 dB on an H100: a fine sample placed across a bin edge)
+    r_px = make(renderer_kw=dict(fused_gather=True), use_proposal=True, mlp_backend="xla")
+    r_px.load_field(sd_p)
+    rgb_px = r_px.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)[0]
+    for label, rend, on_path in (("unfused", r_p, ("ray_expand", "corner_lerp",
+                                                   "fused_resnetfc_int8")),
+                                 ("gather_fused", r_pg, ("ray_expand",
+                                                         "fused_gather_resnetfc_int8"))):
+        out, times, launches, peak = frames(rend, 100)
+        per_frame = {k: v / FRAMES for k, v in launches.items()}
+        want = {k: (n_tiles if k.removesuffix("_wgmma").removesuffix("_cuda") in on_path
+                    else 0) for k in per_frame}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            rend.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        device_ms = sum(x[1] for x in device_rows(torch, prof))
+        gap = (out[0] - rgb_px).abs().max().item()
+        db = -10.0 * math.log10(max(((out[0] - rgb_px) ** 2).mean().item(), 1e-20))
+        emit("render_proposal", gather_fused_mlp=label == "gather_fused", frames=FRAMES,
+             p50_ms=statistics.median(times), frame_ms=times, launches_per_frame=per_frame,
+             profiled_frame_wall_ms=wall_ms, device_ms=device_ms,
+             device_busy_share=device_ms / wall_ms, vs_xla_max_rgb_gap=gap, vs_xla_psnr_db=db, rgb_tol=RGB_TOL, psnr_min_db=PSNR_MIN,
+             xla_rgb_max=rgb_px.amax().item(), peak_mem_gb=peak, card=card)
+        if per_frame != want:
+            fail(f"render proposal {label}: launches per frame {per_frame}, want {want}")
+        if not (all(torch.isfinite(x).all() for x in out) and gap <= RGB_TOL
+                and db >= PSNR_MIN and rgb_px.amax().item() > 0.05):
+            fail(f"render proposal {label}: kernel frame vs plain proposal frame, gap {gap}, "
+                 f"PSNR {db} dB")
+    del r_p, r_pg, r_px
+
+    # (b) the quantized field on the plain path
+    r_q = make(quantized=True, mlp_backend="xla")
+    r_q.load_field(sd)
+    t = time.perf_counter()
+    out_q = r_q.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)
+    torch.cuda.synchronize()
+    q_ms = (time.perf_counter() - t) * 1e3
+    gap, db, ok = frame_check(out_q[0])
+    layers = [m for m in r_q.field.mlp_coarse.modules() if isinstance(m, QuantDense)]
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, a, y: seen.append((mod, a[0], y)))
+             for m in layers]
+    int_mm_calls = []
+    int_mm = torch._int_mm
+    torch._int_mm = lambda a, b: (int_mm_calls.append(tuple(a.shape)), int_mm(a, b))[1]
+    try:
+        with torch.no_grad():
+            rays = r_q.frame_rays(pose, focal)[plan.idx[:r_q.cfg.render_tile].clamp(
+                max=plan.n_total - 1)]
+            r_q.render_rays(d0, rays, cuda_gen(100), occ=occ)
+    finally:
+        torch._int_mm = int_mm
+        for h in hooks:
+            h.remove()
+    twin_gap, twin_rows, twin_diff, code_diff, scale_diff = 0.0, 0, 0, 0, 0
+    for mod, x, y in seen:       # the first TWIN_ROWS rows of each layer's input
+        x, y = x[:TWIN_ROWS], y[:TWIN_ROWS]
+        cpu = QuantDense(mod.weight.shape[1], mod.weight.shape[0],
+                         use_bias=mod.bias is not None, dtype=mod.dtype)
+        cpu.load_state_dict({k: v.cpu() for k, v in mod.state_dict().items()})
+        with torch.no_grad():
+            y_cpu = cpu(x.cpu()).float()
+        d = (y.float().cpu() - y_cpu).abs()
+        twin_gap = max(twin_gap, (d.max() / y_cpu.abs().max().clamp_min(1e-30)).item())
+        twin_rows, twin_diff = twin_rows + x.shape[0], twin_diff + int((d > 0).sum())
+        (qc, sc_card), (qh, sc_cpu) = quantize_rows(x), quantize_rows(x.cpu())
+        code_diff += int((qc.cpu() != qh).sum())
+        scale_diff += int((sc_card.cpu() != sc_cpu).sum())
+    # (c) a backward through the quantized field raises
+    vox = d0.detach().clone().requires_grad_()
+    pts = torch.rand((1, 64, 3), generator=cuda_gen(5), device=dev) * 0.5
+    try:
+        r_q.field(vox, pts, torch.ones_like(pts))["rgb"].sum().backward()
+        backward_raised = False
+    except NotImplementedError as e:
+        backward_raised = "serving-only" in str(e)
+    emit("render_quantized", frame_ms=q_ms, vs_plain_bf16_max_rgb_gap=gap, vs_plain_psnr_db=db,
+         rgb_tol=RGB_TOL, psnr_min_db=PSNR_MIN, quant_layers_checked=len(seen),
+         int_mm_calls=len(int_mm_calls), int_mm_shapes=sorted(set(int_mm_calls))[:4],
+         rows_checked=twin_rows, card_vs_cpu_max_gap_of_scale=twin_gap,
+         card_vs_cpu_tol=2 ** -8, card_vs_cpu_values_differing=twin_diff,
+         card_vs_cpu_codes_differing=code_diff, card_vs_cpu_row_scales_differing=scale_diff,
+         backward_raises=backward_raised, card=card)
+    if not ok:
+        fail(f"render quantized: frame vs plain bf16 frame, gap {gap}, PSNR {db} dB")
+    if not (seen and len(int_mm_calls) == len(seen) and twin_gap <= 2 ** -8):
+        fail(f"render quantized: {len(seen)} layers, {len(int_mm_calls)} torch._int_mm calls, "
+             f"card vs CPU {twin_gap} (at most 2^-8)")
+    if not backward_raised:
+        fail("render quantized: a backward through the quantized field did not raise")
 
 
 def grad_phase(torch, dev, card, packed):
@@ -1159,15 +1322,15 @@ def nerfact_phase(torch, dev, card):
 
     base = from_dict(NerfActConfig, NERFACT)
 
-    def setting(name, fp32=False):
+    def setting(name, fp32=False, proposal=False):
         """(config, FUSED_LERP_BACKEND, the lerp it calls) of setting a, b
-        or c."""
+        or c; with proposal, the field's proposal sampler on."""
         conv, expand, lerp, fn = {
             "a": ("conv2d", "auto", "xla", corner_lerp),
             "b": ("pallas", True, "pallas", corner_lerp),
             "c": ("conv2d", True, "pallas", lerp_cuda.corner_lerp_plain)}[name]
         model = dataclasses.replace(base.peract.model, conv_backend=conv)
-        field = base.renderer.field
+        field = dataclasses.replace(base.renderer.field, use_proposal=proposal)
         if fp32:
             model = dataclasses.replace(model, compute_dtype="float32")
             field = dataclasses.replace(field, compute_dtype="float32")
@@ -1194,23 +1357,44 @@ def nerfact_phase(torch, dev, card):
                      ("fine_u", torch.rand((r, nf), generator=g)),
                      ("fine_jitter", torch.rand((r, nf), generator=g)),
                      ("fine_depth_eps", torch.randn((r, rc.n_fine_depth), generator=g)))})
+    # the proposal part's batch: unit-scale teacher features (the synthetic
+    # batch's are 0.01 of that), so that an embed term shows in the loss
+    batch_p = dict(batch, gt_embed=torch.randn(batch["gt_embed"].shape,
+                                               generator=torch.Generator().manual_seed(2)
+                                               ).to(dev))
     setup_s = time.perf_counter() - t0
 
-    def fresh(name, fp32=False):
-        cfg, lerp, fn = setting(name, fp32)
+    sd_proposal = {}
+
+    def fresh(name, fp32=False, proposal=False, coarse_embed_fault=False):
+        cfg, lerp, fn = setting(name, fp32, proposal)
         tr = NerfActTrainer(cfg, device=dev)
         state = tr.init_state(torch.Generator().manual_seed(0))
-        state.module.load_state_dict(sd_b if name == "b" else sd_plain)
+        sd = sd_b if name == "b" else sd_plain
+        if proposal:    # the proposal MLP's weights: one draw for every run
+            if not sd_proposal:
+                sd_proposal.update({k: v.detach().clone() for k, v in state.module.state_dict(
+                    ).items() if k.startswith("nerf.mlp_proposal.")})
+            sd = dict(sd, **sd_proposal)
+        state.module.load_state_dict(sd)
         # the rendering loss's own gradient of d0: the slice handed to it
         inner = tr.renderer.rendering_loss
 
         def rendering_loss(voxel_feat, *a, **k):
             voxel_feat.retain_grad()
             tr.voxel_feat = voxel_feat
-            return inner(voxel_feat, *a, **k)
+            loss, m = inner(voxel_feat, *a, **k)
+            if coarse_embed_fault:
+                # planted: the coarse embed term the proposal mode drops,
+                # left in (the proposal pass's embed is zero)
+                gt_e = k["gt_embed"].reshape(-1, k["gt_embed"].shape[-1])[k["ray_idx"]]
+                m["loss_embed_coarse"] = cfg.renderer.lambda_embed * (gt_e ** 2).mean()
+                loss = loss + m["loss_embed_coarse"]
+                m["loss_render"] = loss
+            return loss, m
 
         tr.renderer.rendering_loss = rendering_loss
-        return dict(tr=tr, state=state, lerp=lerp, lerp_fn=fn)
+        return dict(tr=tr, state=state, lerp=lerp, lerp_fn=fn, batch=batch)
 
     def route(run):
         """The run's lerp route: the expanded path calls
@@ -1220,7 +1404,7 @@ def nerfact_phase(torch, dev, card):
 
     def step(run):
         route(run)
-        return run["tr"].train_step(run["state"], batch, **draws)[1]
+        return run["tr"].train_step(run["state"], run["batch"], **draws)[1]
 
     def grads_of(run):
         """The step's gradients by parameter (the plain conv's in the
@@ -1235,16 +1419,18 @@ def nerfact_phase(torch, dev, card):
         grads["render.d_voxel_feat"] = run["tr"].voxel_feat.grad.float().clone()
         return grads
 
-    def one_step(name, fp32=False):
-        run = fresh(name, fp32)
+    def one_step(name, fp32=False, **kw):
+        run = fresh(name, fp32, **kw)
+        if kw.get("proposal"):
+            run["batch"] = batch_p
         m = step(run)
-        return grads_of(run), m["loss_total"].item()
+        return grads_of(run), m["loss_total"].item(), {k: v.item() for k, v in m.items()}
 
     def profiled(run):
         route(run)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            run["tr"].train_step(run["state"], batch, **draws)
+            run["tr"].train_step(run["state"], run["batch"], **draws)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
         rows = device_rows(torch, prof)
@@ -1370,7 +1556,7 @@ def nerfact_phase(torch, dev, card):
         # and a gradient that one voxel dominates (trans_decoder's weight:
         # the label voxel) moves by as much (1.045 ulps in one H100 run,
         # where c's own gap was under one)
-        g_fp32, loss_fp32 = one_step("c", fp32=True)
+        g_fp32, loss_fp32, _ = one_step("c", fp32=True)
         tol = {k: max(v, 2 ** -7) for k, v in gaps(grads["c"], g_fp32).items()}
         # b's own gap to the fp32 step, beside c's: how far each bf16 path lies
         b_fp32 = gaps(grads["b"], g_fp32)
@@ -1419,6 +1605,82 @@ def nerfact_phase(torch, dev, card):
     for k, (x, _, _) in faults.items():
         if not x > 1.0:
             fail(f"nerfact: the gradient check does not see the planted fault {k} ({x})")
+
+    # ---- the proposal sampler (field.use_proposal: true) in settings b and
+    # c: the coarse pass on the proposal MLP (the lerp kernel where the
+    # latent is sampled), the fine pass compositing the new samples only
+    prop = {}
+    for name in "bc":
+        prop[name] = dict(fresh(name, proposal=True), times=[], losses=[],
+                          launches=dict.fromkeys((c[0] for c in counters), 0))
+        prop[name]["batch"] = batch_p
+    for i in range(n):
+        for name in ("bc" if i % 2 == 0 else "cb"):
+            run = prop[name]
+            for _, obj, attr in counters:
+                setattr(obj, attr, 0)
+            t = time.perf_counter()
+            m = step(run)
+            torch.cuda.synchronize()
+            if i >= NERFACT_WARMUP:
+                run["times"].append((time.perf_counter() - t) * 1e3)
+            for key, obj, attr in counters:
+                run["launches"][key] += getattr(obj, attr)
+            run["losses"].append(m["loss_total"].item())
+    for name, run in prop.items():
+        losses, launches = run["losses"], run["launches"]
+        want = {k: n * per_step[name] * (2 if k.startswith("corner_lerp") else 1)
+                for k in launches}
+        emit("nerfact_proposal", setting=name, warmup=NERFACT_WARMUP, steps=NERFACT_STEPS,
+             p50_ms=statistics.median(run["times"]), step_ms=run["times"],
+             loss_first=losses[0], loss_last=losses[-1], launches=launches,
+             launches_per_step={k: v / n for k, v in launches.items()}, **profiled(run),
+             card=card)
+        if launches != want:
+            fail(f"nerfact proposal {name}: launches {launches} over {n} steps, want {want}")
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            fail(f"nerfact proposal {name}: loss_total did not fall: {losses}")
+    del prop, run
+    with deterministic_algorithms(torch):
+        g_b, _, m_b = one_step("b", proposal=True)
+        g_c, _, m_c = one_step("c", proposal=True)
+        g_f, _, m_f = one_step("c", fp32=True, proposal=True)
+        tol_p = {k: max(v, 2 ** -7) for k, v in gaps(g_c, g_f).items()}
+        # the render loss by the same rule: c's own bf16-vs-fp32 gap, at
+        # least 2^-7 relative
+        loss_tol = max(abs(m_c["loss_render"] - m_f["loss_render"]) / abs(m_f["loss_render"]),
+                       2 ** -7)
+        del g_f
+
+        def check_p(got, m):
+            """(worst of the gradients' and the render loss's gap over its
+            tolerance, the worst tensor, the loss gap, the metric names
+            equal to c's)."""
+            gp = gaps(got, g_c)
+            worst = max(gp, key=lambda k: gp[k] / tol_p[k])
+            loss_gap = abs(m["loss_render"] - m_c["loss_render"]) / abs(m_c["loss_render"])
+            return (max(gp[worst] / tol_p[worst], loss_gap / loss_tol), worst, loss_gap,
+                    set(m) == set(m_c))
+
+        ratio_p, worst_p, loss_gap_p, keys_p = check_p(g_b, m_b)
+        g_fault, _, m_fault = one_step("b", proposal=True, coarse_embed_fault=True)
+        fault_p = check_p(g_fault, m_fault)
+        del g_b, g_fault
+    grid_sample.FUSED_LERP_BACKEND, lerp_cuda.corner_lerp = "xla", corner_lerp
+    emit("nerfact_proposal_grad", tensors=len(tol_p), worst_gap_over_tol=ratio_p,
+         worst_tensor=worst_p, loss_render_gap=loss_gap_p, loss_render_tol=loss_tol,
+         metric_names_equal=keys_p, metrics_b=m_b, metrics_c=m_c,
+         plain_bf16_vs_fp32_gap={"max": max(tol_p.values()),
+                                 "median": statistics.median(tol_p.values())},
+         planted_faults={"coarse_embed_loss_left_in": {
+             "worst_gap_over_tol": fault_p[0], "worst_tensor": fault_p[1],
+             "loss_render_gap": fault_p[2], "metric_names_equal": fault_p[3]}}, card=card)
+    if "loss_embed_coarse" in m_c or not keys_p or not ratio_p <= 1.0:
+        fail(f"nerfact proposal: the kernel path is {ratio_p} x its tolerance ({worst_p}), "
+             f"metric names equal: {keys_p}")
+    if fault_p[0] <= 1.0 and fault_p[3]:
+        fail(f"nerfact proposal: the check does not see the coarse embed loss left in "
+             f"({fault_p})")
 
 
 # the seven kernels by their CUDA function names in a profile
@@ -2052,6 +2314,388 @@ def featurenerf_phase(torch, np, dev, card):
     if not (np.isfinite(rgb).all() and 0.0 <= rgb.min() and rgb.max() <= 1.0):
         fail("featurenerf_eval: rgb outside [0, 1]")
     return state, np.concatenate([sc.images for sc in scenes])
+
+
+def splat_depth(np, seed, poses, h, w, focal):
+    """z-depth of the synthetic scene's points splatted as synthesize_scene_npz
+    splats its images (the nearest point a pixel, inf where none lands): the
+    principal point at ((w-1)/2, (h-1)/2), as match_pixels reprojects."""
+    from real_robot_nerf_actor_tpu_torch.data.synthetic import make_synthetic_scene
+
+    scene = make_synthetic_scene(seed=seed)
+    out = np.full((len(poses), h, w), np.inf, np.float32)
+    for v, pose in enumerate(poses):
+        w2c = np.linalg.inv(pose)
+        p = scene.points @ w2c[:3, :3].T + w2c[:3, 3]
+        z = -p[:, 2]
+        keep = z > 1e-3
+        p, z = p[keep], z[keep]
+        u = (focal * p[:, 0] / z + w / 2).astype(np.int32)
+        r = (-focal * p[:, 1] / z + h / 2).astype(np.int32)
+        ok = (u >= 0) & (u < w) & (r >= 0) & (r < h)
+        np.minimum.at(out[v], (r[ok], u[ok]), z[ok].astype(np.float32))
+    return out
+
+
+def teacher_phase(torch, np, dev, card):
+    """Phase 11: the FeatureNeRF contrastive teacher at full width, the
+    render panels and the pixelNeRF family's last two models.
+
+    1. teacher_data: synthesize_scene_npz writes TEACHER_SCENES, each with
+       the z-depth of its splatted points (splat_depth).
+    2. teacher_load: the committed JAX teacher (TEACHER_MSGPACK, 3000 steps)
+       through load_teacher_state (read_flax_msgpack, no flax): feature_maps
+       of one scene's 12 views on the card against the CPU within FWD_TOL of
+       their scale; its teacher_quality on the last two scenes (the CLI's
+       held-out ones).
+    3. teacher_grad: the CLI's first step from seed 0 (numpy's draws, the
+       weights from torch.Generator(0)) on the card and on the CPU: losses
+       within LOSS_TOL, gradients within GRAD_TOL of each tensor's largest
+       |g| plus ULP_K times the CPU's response to a one-ulp move of the
+       weights (as phase 10), parameters after the Adam step (update_gaps);
+       three planted faults must each fail it: norm_uv's x and y swapped,
+       the temperature dropped, TF32 on.
+    4. teacher: TEACHER_STEPS steps of `fit` on the first six scenes: p50,
+       one profiled step (device time, busy share), peak memory, the mean
+       loss of the first and of the last 100 steps; the last must be lower.
+    5. teacher_dump: the CLI (train/teacher.py main) resumes the trained
+       state with --steps 0 --dump: features (12, 64, 64, 64) and cls_attn
+       (12, 64, 64) in every scene; then one FeatureNeRF step of
+       configs/featurenerf.yaml at d_embed 64 (and the z band override) on
+       them, finite.
+    6. panels: eval/novel.py's main with --out on a checkpoint of that
+       step: each novel_{si}.png read back with read_png equals the tiled
+       panel arrays at uint8.
+    7. models: ConvEncoder (batch CONV_ENCODER_BATCH, 128 x 128) and
+       ImplicitNet (IMPLICIT) forward and backward on the card against the
+       CPU: outputs within FWD_TOL, gradients (of the weights and the
+       input) within GRAD_TOL plus ULP_K times the CPU's own fp32 error (its
+       gap to the CPU's float64 gradient); and the same in float64 within
+       F64_TOL of each tensor's scale (ConvEncoder's GroupNorm over its 2 x 2
+       bottleneck makes its fp32 gradients rounding-bound: the CPU's fp32
+       input gradient sits 2.2% of its scale off its float64 one, so the
+       fp32 bound is wide and the float64 comparison is the tight one).
+    Returns nothing; fails on any check."""
+    import glob
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch.data.png import read_png, read_png_text
+    from real_robot_nerf_actor_tpu_torch.data.scene_dataset import (
+        SceneDataset, load_scene, save_scene, synthesize_scene_npz)
+    from real_robot_nerf_actor_tpu_torch.eval import novel
+    from real_robot_nerf_actor_tpu_torch.models.blocks import init_weights
+    from real_robot_nerf_actor_tpu_torch.models.encoder2d import ConvEncoder
+    from real_robot_nerf_actor_tpu_torch.models.implicit import ImplicitNet
+    from real_robot_nerf_actor_tpu_torch.train import teacher
+    from real_robot_nerf_actor_tpu_torch.train.featurenerf import (
+        FeatureNerfConfig, FeatureNerfTrainer)
+    from real_robot_nerf_actor_tpu_torch.train.trainer import CheckpointManager
+    from real_robot_nerf_actor_tpu_torch.utils import visualize
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict
+
+    t_phase = time.perf_counter()
+    cpu_s = [0.0]      # seconds of the CPU references
+
+    def on_cpu(fn):
+        t = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            cpu_s[0] += time.perf_counter() - t
+
+    msgpack = str(Path(__file__).resolve().parent / TEACHER_MSGPACK)
+    with tempfile.TemporaryDirectory() as root:
+        # ------------------------------------------------------------ 1. data
+        t0 = time.perf_counter()
+        data = os.path.join(root, "scenes")
+        os.makedirs(data)
+        for i in range(TEACHER_SCENES["n_scenes"]):
+            path = os.path.join(data, f"scene_{i}.npz")
+            h, w = TEACHER_SCENES["hw"]
+            sc = synthesize_scene_npz(path, n_views=TEACHER_SCENES["n_views"], hw=(h, w),
+                                      seed=i)
+            sc.depth = splat_depth(np, i, sc.poses, h, w, sc.focal)
+            sc.features = None
+            save_scene(path, sc)
+        paths = sorted(glob.glob(os.path.join(data, "*.npz")))
+        scenes = [load_scene(p) for p in paths]
+        covered = float(np.mean([np.isfinite(sc.depth).mean() for sc in scenes]))
+        emit("teacher_data", scenes=len(scenes), views=TEACHER_SCENES["n_views"],
+             hw=list(TEACHER_SCENES["hw"]), write_s=time.perf_counter() - t0,
+             depth_covered_share=covered, card=card)
+
+        # ------------------------------------------------ 2. the JAX teacher
+        cfg = teacher.TeacherConfig()
+        tr = teacher.TeacherTrainer(cfg, device=dev)
+        tr_cpu = teacher.TeacherTrainer(cfg, device="cpu")
+        t0 = time.perf_counter()
+        loaded = teacher.load_teacher_state(msgpack, tr.init_state())
+        load_s = time.perf_counter() - t0
+        loaded_cpu = on_cpu(lambda: teacher.load_teacher_state(msgpack, tr_cpu.init_state()))
+        t0 = time.perf_counter()
+        f_card, a_card = tr.feature_maps(loaded, scenes[0].images)
+        maps_s = time.perf_counter() - t0
+        f_cpu, a_cpu = on_cpu(lambda: tr_cpu.feature_maps(loaded_cpu, scenes[0].images))
+        feat_err = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+        attn_err = float(np.abs(a_card - a_cpu).max())
+        quality = teacher.teacher_quality(loaded, tr, scenes[-2:], np.random.default_rng(123))
+        emit("teacher_load", path=TEACHER_MSGPACK, step=loaded.step, load_s=load_s,
+             feature_shape=list(f_card.shape), feature_maps_s=maps_s,
+             card_vs_cpu_feature_err_of_scale=feat_err, attn_err=attn_err, tol=FWD_TOL,
+             quality_on_these_scenes=quality,
+             quality_jax_recorded={"matched_cosine": 0.753, "random_cosine": 0.011,
+                                   "teacher_corr_at2px": 0.535}, card=card)
+        nv, (h, w) = TEACHER_SCENES["n_views"], TEACHER_SCENES["hw"]
+        want_f, want_a = (nv, h // 2, w // 2, cfg.d_embed), (nv, h // 2, w // 2)
+        if not (loaded.step == 3000 and f_card.shape == want_f and feat_err <= FWD_TOL):
+            fail(f"teacher_load: step {loaded.step}, features {f_card.shape}, card vs CPU "
+                 f"{feat_err} of scale (at most {FWD_TOL})")
+        del loaded, loaded_cpu
+
+        # --------------------------------------------- 3. the first step
+        train_scenes, val_scenes = scenes[:-2], scenes[-2:]
+        rng = np.random.default_rng(0)
+        while True:
+            si = int(rng.integers(0, len(train_scenes)))
+            sc = train_scenes[si]
+            i, j = rng.choice(len(sc.images), 2, replace=False)
+            match = teacher.match_pixels(sc.poses, sc.focal, sc.depth, int(i), int(j),
+                                         cfg.n_pairs, rng, cfg.depth_tol)
+            if match is not None:
+                break
+        pair = np.stack([sc.images[int(i)], sc.images[int(j)]]).astype(np.float32)
+        sd0 = tr_cpu.init_state(torch.Generator().manual_seed(0)).module.state_dict()
+        sample = teacher.bilinear_sample_2d
+
+        def first_step(device, fault=None):
+            trd = teacher.TeacherTrainer(cfg if fault != "temperature_dropped" else
+                                         dataclasses.replace(cfg, temperature=1.0),
+                                         device=device)
+            st = trd.init_state()
+            st.module.load_state_dict(sd0)
+            if fault in ("ulp_up", "ulp_down"):
+                move_one_ulp(torch, list(st.module.parameters()), 1 if fault == "ulp_up" else -1)
+            if fault == "uv_x_y_swapped":
+                teacher.bilinear_sample_2d = lambda feat, uv: sample(feat, uv.flip(-1))
+            try:
+                st, m = trd.train_step(st, torch.as_tensor(pair, device=device),
+                                       torch.as_tensor(match[0], device=device),
+                                       torch.as_tensor(match[1], device=device))
+            finally:
+                teacher.bilinear_sample_2d = sample
+            named = dict(st.module.named_parameters())
+            return {"losses": {k: float(v) for k, v in m.items() if k != "pair_acc"},
+                    "grads": {n: p.grad.detach().double().cpu() for n, p in named.items()},
+                    "params": {n: p.detach().double().cpu() for n, p in named.items()}}
+
+        ref = on_cpu(lambda: first_step("cpu"))
+        # each gradient's bound widens by ULP_K times the largest change that
+        # moving every weight one ulp (by seeded coins, then turned over)
+        # makes in it on the CPU, as phase 10 widens its fine-tunes': the
+        # train-mode BatchNorm's fast variance E[x^2] - E[x]^2 cancels where
+        # a channel's mean dwarfs its spread, so the encoder's gradients move
+        # by more than GRAD_TOL with the rounding of the sums (an H100's
+        # first step read 27.6x GRAD_TOL unwidened, on
+        # stage1_block1.Conv_0.weight)
+        moved = on_cpu(lambda: [first_step("cpu", f)["grads"] for f in ("ulp_up", "ulp_down")])
+        slack = {n: ULP_K * max((w - m[n]).abs().max() for m in moved)
+                 for n, w in ref["grads"].items()}
+        slack_ratio = {n: (slack[n] / (GRAD_TOL * w.abs().max() + 1e-30)).item()
+                       for n, w in ref["grads"].items()}
+        with deterministic_algorithms(torch) as nondeterministic_ops:
+            card_run = first_step(dev)
+            faults = {f: update_gaps(torch, first_step(dev, f), ref, cfg.lr, slack=slack)
+                      for f in ("uv_x_y_swapped", "temperature_dropped")}
+            with tf32(torch, True):
+                faults["tf32"] = update_gaps(torch, first_step(dev), ref, cfg.lr, slack=slack)
+        gaps = update_gaps(torch, card_run, ref, cfg.lr, slack=slack)
+        emit("teacher_grad", pairs=int(match[0].shape[0]), scene=si, views=[int(i), int(j)],
+             loss_card=card_run["losses"]["loss"], loss_cpu=ref["losses"]["loss"],
+             gaps=gaps, grad_gap_unwidened=update_gaps(torch, card_run, ref, cfg.lr)["grad"],
+             ulp_slack_of_grad_tol=dict(sorted(slack_ratio.items(),
+                                               key=lambda kv: -kv[1])[:4]),
+             tensors=len(ref["grads"]), loss_tol=LOSS_TOL, grad_tol=GRAD_TOL, ulp_k=ULP_K,
+             nondeterministic_ops=nondeterministic_ops, planted=faults, card=card)
+        if not passes(gaps):
+            fail(f"teacher_grad: the card's first step against the CPU's: {gaps}")
+        for f, g in faults.items():
+            if passes(g):
+                fail(f"teacher_grad: the planted fault {f} passes the check: {g}")
+
+        # ------------------------------------------------------ 4. training
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        losses, times = [], []
+        last = [time.perf_counter()]
+
+        def on_step(step, m):
+            losses.append(m["loss"].item())       # the sync of the step
+            now = time.perf_counter()
+            times.append((now - last[0]) * 1e3)
+            last[0] = now
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last[0] = t0
+        state = teacher.fit(tr, state, train_scenes, TEACHER_STEPS, seed=0,
+                            log_every=TEACHER_STEPS, callback=on_step)
+        train_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        imgs = torch.as_tensor(pair, device=dev)
+        uv = [torch.as_tensor(x, device=dev) for x in match]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            tr.train_step(state, imgs, *uv)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        rows = device_rows(torch, prof)
+        device_ms = sum(r[1] for r in rows)
+        first100, last100 = float(np.mean(losses[:100])), float(np.mean(losses[-100:]))
+        quality = teacher.teacher_quality(state, tr, val_scenes, np.random.default_rng(123))
+        emit("teacher", steps=TEACHER_STEPS, train_s=train_s,
+             p50_ms=statistics.median(times[1:]), step_ms_p90=float(np.percentile(times, 90)),
+             profiled_step_wall_ms=wall_ms, device_ms=device_ms,
+             device_busy_share=device_ms / wall_ms, device_events=sum(r[2] for r in rows),
+             top_kernels=[{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:10]],
+             peak_mem_gb=peak_gb, loss_step0=losses[0], loss_mean_first100=first100,
+             loss_mean_last100=last100, loss_every100=losses[::100] + [losses[-1]],
+             quality_val=quality, jax_log={"step0": 4.71, "step1000": 2.18}, card=card)
+        if not (all(map(math.isfinite, losses)) and last100 < first100):
+            fail(f"teacher: the mean loss of the last 100 steps {last100} is not below the "
+                 f"first 100's {first100}")
+
+        # ---------------------------------------------- 5. the CLI's dump
+        saved = os.path.join(root, "teacher.pt")
+        teacher.save_teacher_state(saved, state)
+        del state
+        t0 = time.perf_counter()
+        q_cli = teacher.main(["--data-root", data, "--steps", "0", "--resume", saved, "--dump",
+                              "--quality-out", os.path.join(root, "quality.json"),
+                              "--device", "cuda"])
+        dump_s = time.perf_counter() - t0
+        scenes = [load_scene(p) for p in paths]
+        bad = [(sc.features.shape, sc.cls_attn.shape) for sc in scenes
+               if sc.features.shape != want_f or sc.cls_attn.shape != want_a]
+        if bad:
+            fail(f"teacher_dump: {bad}")
+        fcfg = dict(FEATURENERF, **FEATURENERF_OVERRIDE)
+        fcfg["model"] = dict(fcfg["model"], d_embed=64)
+        cfg_path = os.path.join(root, "featurenerf.json")
+        with open(cfg_path, "w") as f:
+            json.dump(fcfg, f)
+        ftr = FeatureNerfTrainer(from_dict(FeatureNerfConfig, fcfg), device=dev)
+        fstate = ftr.init_state(torch.Generator().manual_seed(0))
+        fstate, fm = ftr.train_step(fstate, next(ftr.scene_data(SceneDataset(data, "train"),
+                                                                seed=0)),
+                                    torch.Generator().manual_seed(1))
+        fnerf_loss = fm["loss"].item()
+        ck = os.path.join(root, "fnerf_ckpt")
+        CheckpointManager(ck).save(fstate.step, fstate)
+        emit("teacher_dump", dump_s=dump_s, feature_shape=list(scenes[0].features.shape),
+             attn_shape=list(scenes[0].cls_attn.shape), quality_after_dump=q_cli,
+             featurenerf_step_loss=fnerf_loss,
+             featurenerf_step_metrics={k: v.item() for k, v in fm.items()}, card=card)
+        if not math.isfinite(fnerf_loss):
+            fail(f"teacher_dump: the FeatureNeRF step's loss is {fnerf_loss}")
+        del fstate, ftr
+
+        # ------------------------------------------------------ 6. panels
+        shown = []
+        save_panel = visualize.save_render_panel
+
+        def spy(path, gt, pred, **kw):
+            shown.append((path, gt, pred, kw))
+            return save_panel(path, gt, pred, **kw)
+
+        panels = os.path.join(root, "panels")
+        visualize.save_render_panel = spy
+        try:
+            res = novel.main(["--data-root", data, "--ckpt-dir", ck, "--config", cfg_path,
+                              "--n-scenes", "1", "--n-corr", "0", "--out", panels,
+                              "--device", "cuda"])
+        finally:
+            visualize.save_render_panel = save_panel
+        files = sorted(os.listdir(panels))
+        equal = []
+        for path, gt, pred, kw in shown:
+            want = visualize.tile([visualize.to_uint8(a) for _, a in
+                                   visualize.render_panels(gt, pred)])
+            got = read_png(path)
+            equal.append(got.shape == want.shape and bool((got == want).all())
+                         and read_png_text(path)["PSNR"] == f"{kw['psnr']:.2f}")
+        emit("teacher_panels", files=files, shapes=[list(read_png(os.path.join(panels, f)).shape)
+                                                    for f in files],
+             read_back_equal=equal, novel_psnr=res["psnr_mean"], card=card)
+        if files != ["novel_0.png"] or not (equal and all(equal)):
+            fail(f"panels: {files}, read back equal: {equal}")
+
+    # ------------------------------------------------------ 7. the models
+    results = {}
+    g = torch.Generator().manual_seed(3)
+    enc = init_weights(ConvEncoder(), torch.Generator().manual_seed(0))
+    x = torch.rand((CONV_ENCODER_BATCH, 128, 128, 3), generator=g)
+    imp_kw = {k: v for k, v in IMPLICIT.items() if k != "points"}
+    imp = init_weights(ImplicitNet(**imp_kw), torch.Generator().manual_seed(1))
+    pts = torch.randn((IMPLICIT["points"], IMPLICIT["d_in"]), generator=g)
+    for name, module, inp in (("conv_encoder", enc, x), ("implicit_net", imp, pts)):
+        def run(device, dtype=torch.float32):
+            m = copy.deepcopy(module).to(device, dtype)
+            for sub in m.modules():      # ImplicitNet's layers compute in their dtype
+                if getattr(sub, "dtype", None) is not None:
+                    sub.dtype = dtype
+            xi = inp.detach().to(device, dtype).clone().requires_grad_()
+            out = m(xi)
+            c = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(
+                device, dtype)
+            out.backward(c)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            return {"outputs": {"out": out.detach().double().cpu()},
+                    "grads": {**{n: p.grad.double().cpu() for n, p in m.named_parameters()},
+                              "input": xi.grad.double().cpu()},
+                    "losses": {}}
+
+        ref = on_cpu(lambda: run("cpu"))
+        ref64 = on_cpu(lambda: run("cpu", dtype=torch.float64))
+        # each fp32 gradient's bound widens by ULP_K times the CPU's own fp32
+        # error, its gap to the CPU's float64 gradient (read on the CPU only):
+        # ConvEncoder's GroupNorm takes its fast variance E[x^2] - E[x]^2 over
+        # 16 values a group at the 2 x 2 bottleneck, which cancels, so its
+        # fp32 gradients sit up to 2.2% of their scale off float64 on the CPU
+        # (the input's), though two CPU thread counts agree to 1e-5; an H100
+        # read the input gradient 38x GRAD_TOL from the CPU's unwidened
+        slack = {n: ULP_K * (w - ref64["grads"][n]).abs().max() for n, w in ref["grads"].items()}
+        with deterministic_algorithms(torch):
+            run(dev)
+            t = time.perf_counter()
+            got = run(dev)
+            ms = (time.perf_counter() - t) * 1e3
+            # the same in float64, where rounding leaves the code path alone
+            got64 = run(dev, dtype=torch.float64)
+        gap64 = max(((got64[k][n] - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+                    for k in ("outputs", "grads") for n, w in ref64[k].items())
+        gaps = update_gaps(torch, got, ref, 0.0, slack=slack)
+        ratio = {n: (slack[n] / (GRAD_TOL * w.abs().max() + 1e-30)).item()
+                 for n, w in ref["grads"].items()}
+        results[name] = dict(shape=list(got["outputs"]["out"].shape), fwd_bwd_ms=ms,
+                             gaps=gaps,
+                             grad_gap_unwidened=update_gaps(torch, got, ref, 0.0)["grad"],
+                             cpu_fp32_error_slack_of_grad_tol=dict(sorted(
+                                 ratio.items(), key=lambda kv: -kv[1])[:3]),
+                             card_fp32_vs_fp64_of_scale=max(
+                                 ((got["grads"][n] - w).abs().max() / w.abs().max()).item()
+                                 for n, w in got64["grads"].items()),
+                             float64_max_gap_of_scale=gap64)
+    emit("teacher_models", **results, fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
+         f64_tol=F64_TOL, phase_wall_s=time.perf_counter() - t_phase,
+         phase_cpu_reference_s=cpu_s[0], card=card)
+    for name, r in results.items():
+        if not (passes(r["gaps"]) and r["float64_max_gap_of_scale"] <= F64_TOL):
+            fail(f"teacher_models {name}: card vs CPU {r['gaps']}, float64 "
+                 f"{r['float64_max_gap_of_scale']}")
 
 
 def record_grads(torch, optimizers):
@@ -2968,6 +3612,9 @@ def main():
     # --------------------------------------------------------------- 10. bc
     bc_phase(torch, np, dev, card, fnerf_state, fnerf_views)
     del fnerf_state
+
+    # ---------------------------------------------------------- 11. teacher
+    teacher_phase(torch, np, dev, card)
 
     # ------------------------------------------------------ summary
     info = {

@@ -6,7 +6,8 @@ What this codec covers:
   read:  8-bit gray, gray + alpha, RGB and RGBA, not interlaced, every
          scanline filter (None, Sub, Up, Average, Paeth); ancillary chunks
          are skipped, palette images and other bit depths are refused;
-  write: 8-bit gray, RGB or RGBA, every scanline with filter None.
+  write: 8-bit gray, RGB or RGBA, every scanline with filter None, and
+         optional tEXt chunks (`read_png_text` reads them back).
 `read_png_rgb` gives what PIL's `Image.open(path).convert("RGB")` gives for
 these images: gray is repeated into three channels, alpha is dropped.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 
@@ -26,8 +28,10 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image: np.ndarray, compress_level: int = 6) -> None:
-    """Write an (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image."""
+def write_png(path: str, image: np.ndarray, compress_level: int = 6,
+              text: Optional[Mapping[str, str]] = None) -> None:
+    """Write an (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image;
+    `text` as tEXt chunks (Latin-1 keywords of 1-79 characters)."""
     img = np.asarray(image)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
@@ -40,10 +44,34 @@ def write_png(path: str, image: np.ndarray, compress_level: int = 6) -> None:
     raw = np.zeros((h, 1 + w * c), np.uint8)       # filter byte 0 on every row
     raw[:, 1:] = img.reshape(h, w * c)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    texts = b""
+    for key, value in (text or {}).items():
+        if not 1 <= len(key) <= 79:
+            raise ValueError(f"PNG text keyword {key!r} must have 1-79 characters")
+        texts += _chunk(b"tEXt", key.encode("latin-1") + b"\0" + value.encode("latin-1"))
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
+        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + texts
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), compress_level))
                 + _chunk(b"IEND", b""))
+
+
+def read_png_text(path: str) -> Dict[str, str]:
+    """The tEXt chunks of a PNG file, keyword -> text."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    out, pos = {}, 8
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"tEXt":
+            key, _, value = body.partition(b"\0")
+            out[key.decode("latin-1")] = value.decode("latin-1")
+        elif kind == b"IEND":
+            break
+    return out
 
 
 def _paeth(a: int, b: int, c: int) -> int:

@@ -8,8 +8,8 @@ pixels of the first view are matched into it by the nearest rendered
 embedding and scored against the depth reprojection (z-depth, K with
 c = ((w - 1) / 2, (h - 1) / 2)), visible pixels only: the share within
 `corr_radius` pixels, with its chance level. Each frame draws its samples
-from a generator seeded per scene. `--out` is accepted and saves no
-panel (`utils/visualize` is not ported).
+from a generator seeded per scene. With `--out` (evaluate's out_dir) each
+scene's gt / render panel is written to novel_{si}.png (utils/visualize.py).
 
     python -m real_robot_nerf_actor_tpu_torch.eval.novel --data-root DIR \\
         --config configs/featurenerf.yaml --ckpt-dir CKPT
@@ -91,11 +91,12 @@ def depth_correspondence(emb_a, emb_b, sc, view_a: int, view_b: int, n_corr: int
 
 
 def evaluate(tr, net, scenes, n_scenes: int = 3, n_corr: int = 200,
-             corr_radius: float = 2.0, tile: int = TILE) -> Dict:
+             corr_radius: float = 2.0, tile: int = TILE,
+             out_dir: Optional[str] = None) -> Dict:
     """The eval of the module doc over the first n_scenes of `scenes`.
     Returns per-scene entries (psnr, ssim, frame_ms: the render time of
     each frame on the host clock, with a synchronise; corr_* with depth)
-    and their means."""
+    and their means. out_dir: each scene's panel, novel_{si}.png."""
     results = {"scenes": []}
     psnrs, ssims, accs, chances = [], [], [], []
     rng = np.random.default_rng(0)
@@ -122,6 +123,11 @@ def evaluate(tr, net, scenes, n_scenes: int = 3, n_corr: int = 200,
         entry = {"psnr": psnr_np(pred, gt), "ssim": ssim_np(pred.mean(-1), gt.mean(-1))}
         psnrs.append(entry["psnr"])
         ssims.append(entry["ssim"])
+        if out_dir:
+            from real_robot_nerf_actor_tpu_torch.utils.visualize import save_render_panel
+            os.makedirs(out_dir, exist_ok=True)
+            save_render_panel(os.path.join(out_dir, f"novel_{si}.png"), gt, pred,
+                              psnr=entry["psnr"])
         if n_corr > 0 and sc.depth is not None:
             _, emb_b = frame(tgt2)
             corr = depth_correspondence(emb_a, emb_b, sc, tgt, tgt2, n_corr, corr_radius, rng)
@@ -156,8 +162,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--n-corr", type=int, default=200,
                     help="correspondence queries per scene (0 = off)")
     ap.add_argument("--corr-radius", type=float, default=2.0)
-    ap.add_argument("--out", default=None,
-                    help="accepted; no render panel is saved (utils/visualize is not ported)")
+    ap.add_argument("--out", default=None, help="dir for the novel_{si}.png panels")
     ap.add_argument("--out-json", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -172,7 +177,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         step = state.step
         print(f"restored step {step}")
     results = {"step": step, **evaluate(tr, state.module, scenes, args.n_scenes,
-                                        args.n_corr, args.corr_radius)}
+                                        args.n_corr, args.corr_radius, out_dir=args.out)}
     for si, entry in enumerate(results["scenes"]):
         print(f"scene {si}: {entry}")
     corr = (f"  corr@{args.corr_radius}px: {results['corr_acc_mean']:.3f}"

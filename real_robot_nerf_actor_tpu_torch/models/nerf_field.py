@@ -6,8 +6,12 @@ policy's voxel feature grid (the latent); canonical xyz -> positional code
 (6 freqs, factor 1.5, with input: 39 dims) + raw viewdirs (3); [latent,
 code, viewdirs] -> ResnetFC -> [sigmoid(rgb), relu(sigma), embed].
 
-The proposal sampler (`use_proposal`) and `quantized` wait for the
-training slice: the serving configs use neither.
+With `use_proposal`, a small ResnetFC (`mlp_proposal`: d_out 4,
+proposal_blocks x proposal_hidden, no combine) replaces the full field on
+the coarse pass: [sigmoid(rgb), masked relu(sigma), a zero embed]; with
+`proposal_use_latent` false it sees only the code and viewdirs, and the
+coarse samples skip the voxel gather. With `quantized`, the ResnetFC block
+matmuls run W8A8 (models/resnetfc.QuantDense; serving only).
 """
 from __future__ import annotations
 
@@ -78,16 +82,18 @@ class NerfFieldConfig:
 class VoxelNerfField(nn.Module):
     def __init__(self, cfg: NerfFieldConfig, share_mlp: bool = True):
         super().__init__()
-        if cfg.use_proposal or cfg.quantized:
-            raise NotImplementedError("use_proposal and quantized wait for the "
-                                      "training slice of the port")
         self.cfg, self.share_mlp = cfg, share_mlp
         kw = dict(d_in=cfg.d_in, d_out=cfg.d_out, n_blocks=cfg.n_blocks,
                   d_latent=cfg.d_latent, d_hidden=cfg.d_hidden,
-                  combine_layer=cfg.combine_layer, dtype=cfg.dtype)
+                  combine_layer=cfg.combine_layer, dtype=cfg.dtype, quantized=cfg.quantized)
         self.mlp_coarse = ResnetFC(**kw)
         if not share_mlp:
             self.mlp_fine = ResnetFC(**kw)
+        if cfg.use_proposal:
+            self.mlp_proposal = ResnetFC(
+                d_in=cfg.d_in, d_out=4, n_blocks=cfg.proposal_blocks,
+                d_latent=cfg.d_latent if cfg.proposal_use_latent else 0,
+                d_hidden=cfg.proposal_hidden, combine_layer=1000, dtype=cfg.dtype)
 
     def world_to_canonical(self, xyz: torch.Tensor) -> torch.Tensor:
         b = torch.as_tensor(self.cfg.coord_bounds, dtype=xyz.dtype, device=xyz.device)
@@ -118,10 +124,20 @@ class VoxelNerfField(nn.Module):
                 c.num_freqs, 3, c.freq_factor, True))
         if c.use_viewdirs:
             feat = torch.cat([feat, viewdirs.to(feat.dtype)], dim=-1)
-        latent = sample_in_canonical_voxel(voxel_feat, canon, expanded=expanded,
-                                           out_channels=c.d_latent)
-        dt = torch.promote_types(latent.dtype, feat.dtype)
-        mlp_in = torch.cat([latent.to(dt), feat.to(dt)], dim=-1).reshape(sb * b, -1)
+        proposal_pass = coarse and c.use_proposal
+        if proposal_pass and not c.proposal_use_latent:
+            mlp_in = feat.reshape(sb * b, -1)
+        else:
+            latent = sample_in_canonical_voxel(voxel_feat, canon, expanded=expanded,
+                                               out_channels=c.d_latent)
+            dt = torch.promote_types(latent.dtype, feat.dtype)
+            mlp_in = torch.cat([latent.to(dt), feat.to(dt)], dim=-1).reshape(sb * b, -1)
+        if proposal_pass:
+            out = self.mlp_proposal(mlp_in)[0].reshape(sb, b, 4)
+            return {"rgb": torch.sigmoid(out[..., :3].float()),
+                    "sigma": mask(torch.relu(out[..., 3].float())),
+                    "embed": torch.zeros((sb, b, c.d_embed), dtype=out.dtype,
+                                         device=out.device)}
         mlp = self.mlp_coarse if (coarse or self.share_mlp) else self.mlp_fine
         if compact_heads:
             if c.regress_coord or c.regress_attention:

@@ -11,8 +11,11 @@
     latent is dropped after it.
 
 Module and parameter names are the flax tree's, so convert.py maps a flax
-`mlp_coarse` tree onto it. `QuantDense` / `quantized` are not ported: no
-serving config uses them (the serving path quantizes in the fused kernel).
+`mlp_coarse` tree onto it. With `quantized=True` every Dense inside the
+residual blocks is a `QuantDense` (dynamic W8A8, ops/quant.py) with the
+same parameter names, so any checkpoint serves quantized; Dense_0, lin_z_*
+and lin_out stay in `dtype`. A quantized ResnetFC is serving-only: a
+backward through it raises.
 """
 from __future__ import annotations
 
@@ -24,20 +27,52 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from real_robot_nerf_actor_tpu_torch.models.blocks import Dense
+from real_robot_nerf_actor_tpu_torch.ops.quant import int8_matmul
 
 KAIMING = (2.0, "fan_in", "normal")   # flax variance_scaling(2, fan_in, normal)
 ZEROS = (0.0, "fan_in", "normal")     # flax initializers.zeros
+SERVING_ONLY = ("QuantDense (quantized=True) is serving-only: int8 rounding has "
+                "zero gradient, so training would silently not learn. Train with "
+                "quantized=False and serve the same checkpoint with the flag on.")
+
+
+class _ServingOnly(torch.autograd.Function):
+    """Identity whose backward raises: the fail-fast guard of a quantized
+    layer (JAX's `_serving_only`)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(SERVING_ONLY)
+
+
+class QuantDense(Dense):
+    """Dense with dynamic W8A8 int8 compute (ops/quant.int8_matmul); the
+    parameters (`weight`, `bias`) are Dense's. The output is in `dtype`."""
+
+    def forward(self, x):
+        dt = self.dtype if self.dtype is not None else x.dtype
+        shp = x.shape
+        y = int8_matmul(x.reshape(-1, shp[-1]), self.weight.T, out_dtype=dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return _ServingOnly.apply(y.reshape(*shp[:-1], y.shape[-1]))
 
 
 class ResnetBlockFC(nn.Module):
-    def __init__(self, size_in: int, size_out: int, dtype: torch.dtype):
+    def __init__(self, size_in: int, size_out: int, dtype: torch.dtype,
+                 quantized: bool = False):
         super().__init__()
-        self.Dense_0 = Dense(size_in, min(size_in, size_out), kernel_init=KAIMING,
+        dense = QuantDense if quantized else Dense
+        self.Dense_0 = dense(size_in, min(size_in, size_out), kernel_init=KAIMING,
                              dtype=dtype)
-        self.Dense_1 = Dense(min(size_in, size_out), size_out, kernel_init=ZEROS,
+        self.Dense_1 = dense(min(size_in, size_out), size_out, kernel_init=ZEROS,
                              dtype=dtype)
         if size_in != size_out:
-            self.Dense_2 = Dense(size_in, size_out, use_bias=False,
+            self.Dense_2 = dense(size_in, size_out, use_bias=False,
                                  kernel_init=KAIMING, dtype=dtype)
 
     def forward(self, x):
@@ -51,7 +86,8 @@ class ResnetBlockFC(nn.Module):
 class ResnetFC(nn.Module):
     def __init__(self, d_in: int, d_out: int = 4, n_blocks: int = 5,
                  d_latent: int = 0, d_hidden: int = 512, combine_layer: int = 1000,
-                 combine_type: str = "average", dtype: torch.dtype = torch.float32):
+                 combine_type: str = "average", dtype: torch.dtype = torch.float32,
+                 quantized: bool = False):
         super().__init__()
         self.d_latent, self.n_blocks, self.combine_layer = d_latent, n_blocks, combine_layer
         self.combine_type = combine_type
@@ -62,7 +98,8 @@ class ResnetFC(nn.Module):
                 setattr(self, f"lin_z_{i}", Dense(d_latent, d_hidden,
                                                   kernel_init=KAIMING, dtype=dtype))
         for i in range(n_blocks):
-            setattr(self, f"ResnetBlockFC_{i}", ResnetBlockFC(d_hidden, d_hidden, dtype))
+            setattr(self, f"ResnetBlockFC_{i}", ResnetBlockFC(d_hidden, d_hidden, dtype,
+                                                              quantized))
         self.lin_out_kernel = nn.Parameter(torch.empty(d_hidden, d_out))
         self.lin_out_bias = nn.Parameter(torch.zeros(d_out))
 

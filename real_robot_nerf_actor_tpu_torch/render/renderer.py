@@ -19,6 +19,11 @@ mlp_backend "xla" runs the plain field. The field's weights live in
 `self.field` (convert.py maps a flax tree onto it); the kernels' packed
 copy is built once, by `load_field` (or `init_params`).
 
+With field.use_proposal the coarse pass runs the field's small proposal
+MLP on the plain path, and the fine pass composites only the sorted new
+samples through the full field (kernels where the knobs are on);
+`rendering_loss` then has no coarse embed term.
+
 Training (the NeRF-Actor joint step) calls `rendering_loss`, whose
 `render_rays` builds the autograd graph through the plain field, or, on the
 corner-expanded grid with `ops.grid_sample.FUSED_LERP_BACKEND = "pallas"`,
@@ -440,7 +445,9 @@ class NeuralRenderer(nn.Module):
         else:
             z_coarse = sample_coarse(rays, c.n_coarse, c.lindisp, u=d.get("coarse_u"),
                                      generator=generator)
-        compact = late
+        # the proposal sampler's coarse pass is its own small MLP on the plain
+        # path (no compaction); only the fine pass reaches the kernels
+        compact = late and not c.field.use_proposal
         vals_c = self._eval_points(voxel_feat, rays, z_coarse, True, d.get("noise_coarse"),
                                    pre_expanded, compact, generator)
         kmajor = self._fused_int8_active(compact) and pre_expanded
@@ -468,7 +475,13 @@ class NeuralRenderer(nn.Module):
                                          c.depth_std, eps=d.get("fine_depth_eps"),
                                          generator=generator))
         z_new = torch.cat(new, dim=-1)
-        if c.reuse_coarse and self.field.share_mlp:
+        if c.field.use_proposal:
+            # the fine output composites only the new samples, through the
+            # full field
+            z_sorted = torch.sort(z_new, dim=-1).values
+            out["fine"] = self._eval_pass(voxel_feat, rays, z_sorted, False,
+                                          d.get("noise_fine"), pre_expanded, late, generator)
+        elif c.reuse_coarse and self.field.share_mlp:
             # evaluate only the new samples, composite the union without
             # sorting (order-free weights, segment-wise weighted sums)
             vals_n = self._eval_points(voxel_feat, rays, z_new, False, d.get("noise_fine"),
@@ -612,10 +625,12 @@ class NeuralRenderer(nn.Module):
         if gt_embed is not None:
             gt_e = gt_embed.reshape(-1, gt_embed.shape[-1])[ray_idx]
             loss_e_f = cfg.lambda_embed * torch.mean((fine.embed - gt_e) ** 2)
-            loss_e_c = cfg.lambda_embed * torch.mean((coarse.embed - gt_e) ** 2)
-            loss = loss + loss_e_f + loss_e_c
+            loss = loss + loss_e_f
             metrics["loss_embed_fine"] = loss_e_f
-            metrics["loss_embed_coarse"] = loss_e_c
+            if not cfg.field.use_proposal:   # the proposal pass has no embed
+                loss_e_c = cfg.lambda_embed * torch.mean((coarse.embed - gt_e) ** 2)
+                loss = loss + loss_e_c
+                metrics["loss_embed_coarse"] = loss_e_c
         if gt_depth is not None and cfg.lambda_depth > 0:
             gt_d = gt_depth.reshape(-1)[ray_idx]
             mask = (gt_d < cfg.z_far).to(gt_d.dtype)

@@ -31,8 +31,10 @@ zero-language ablation, `bc_score` / `bc_render_score` for
 the kernels' pack is rebuilt from them (`_renderer_of`), and static int8
 scales are calibrated once per scene. The decode and the renders run under
 inference_mode, so the policy's forward kernels and the field's serving
-kernels run where their knobs are on. Not ported: the comparison panels
-(`utils/visualize`); `--eval-save-dir` is accepted and saves none.
+kernels run where their knobs are on. With a save directory
+(`--eval-save-dir`) each eval writes the JAX package's comparison panels
+(utils/visualize.py): `render_{step:06d}.png`, and per kitchen
+`k{kid}_render_{step:06d}.png`.
 
     python -m real_robot_nerf_actor_tpu_torch.train.nerfact --steps 100
     python -m real_robot_nerf_actor_tpu_torch.train.nerfact --multi-root DIR
@@ -242,14 +244,15 @@ class NerfActTrainer(PerActTrainer):
     # ---------------------------------------------------------------- eval
     def render_eval(self, state: TrainState, step: int,
                     batch: Optional[Dict[str, torch.Tensor]] = None,
-                    draws: Optional[List[Mapping[str, torch.Tensor]]] = None
-                    ) -> Dict[str, float]:
+                    draws: Optional[List[Mapping[str, torch.Tensor]]] = None,
+                    save_dir: Optional[str] = None) -> Dict[str, float]:
         """The whole ground-truth view of sample 0 rendered from the
         policy's voxel features: PSNR over the image and over its
         foreground (pixels whose colours sum above 0.02), as the JAX
         `render_eval` returns them; static int8 scales are calibrated on
         this view first. draws: render_image's, one mapping a tile (else
-        from a generator seeded with `step`)."""
+        from a generator seeded with `step`). save_dir: the gt / render /
+        depth / embed panel goes to save_dir/render_{step:06d}.png."""
         if batch is None:
             batch = next(self.synthetic_data(batch_size=1))
         d0 = self._policy_out(state, (batch["points"][:1], batch["colors"][:1],
@@ -258,11 +261,14 @@ class NerfActTrainer(PerActTrainer):
         rend = self._renderer_of(state)
         pose, focal = batch["gt_pose"][:1], batch["focal"][0]
         self._calibrate(rend, d0, pose, focal, step)
-        rgb = self._render(rend, d0, pose, focal, step, draws)[0]
+        rgb, embed, depth = self._render(rend, d0, pose, focal, step, draws)
         gt = batch["gt_rgb"][0].cpu().numpy()
         rgb_np = rgb.float().cpu().numpy()
         fg = gt.sum(-1) > 0.02
-        return {"eval_psnr": psnr_np(rgb_np, gt),
+        p = psnr_np(rgb_np, gt)
+        if save_dir:
+            _save_panel(save_dir, f"render_{step:06d}.png", gt, rgb_np, depth, embed, p)
+        return {"eval_psnr": p,
                 "eval_psnr_fg": psnr_np(rgb_np[fg], gt[fg]) if fg.any() else 0.0}
 
     def _stage_transitions(self, src, n_demos: int, exclude=()):
@@ -315,10 +321,10 @@ class NerfActTrainer(PerActTrainer):
           - bc_score = (exact + within1) / 2 - dist / 500 and
             bc_render_score = bc_score + 0.01 * eval_psnr_holdout.
         render_draws(step): render_image's draws for every render of that
-        eval (else generators seeded with the step)."""
+        eval (else generators seeded with the step). save_dir: render_eval's
+        panel."""
         from real_robot_nerf_actor_tpu_torch.data.replay import ReplaySource
 
-        _note_no_panel(save_dir)
         c = self.cfg
         src = ReplaySource(root, n_demos)
         lang = torch.zeros((1, c.model.lang_max_seq_len, c.model.lang_emb_dim),
@@ -331,7 +337,8 @@ class NerfActTrainer(PerActTrainer):
 
         def eval_fn(state: TrainState, step: int) -> Dict[str, float]:
             draws = render_draws(step) if render_draws is not None else None
-            metrics = self.render_eval(state, step, batch=eval_batch, draws=draws)
+            metrics = self.render_eval(state, step, batch=eval_batch, draws=draws,
+                                       save_dir=save_dir)
             stats = {True: _blank(), False: _blank()}
             for d, k, cloud, want, trn in transitions:
                 _score(stats[trn], *self._decode(state, cloud, lang), want, nrc)
@@ -366,10 +373,10 @@ class NerfActTrainer(PerActTrainer):
             undecidable;
           - bc_score and bc_render_score, as make_replay_eval.
         Static int8 scales are calibrated once per kitchen, on its training
-        view's rays. render_draws as make_replay_eval's."""
+        view's rays. render_draws as make_replay_eval's. save_dir: each
+        kitchen's training-view panel, k{kid}_render_{step:06d}.png."""
         from real_robot_nerf_actor_tpu_torch.data.replay import ReplaySource
 
-        _note_no_panel(save_dir)
         c, dev = self.cfg, self.device
         srcs = [ReplaySource(e["root"], e["n_demos"]) for e in entries]
         zero_lang = torch.zeros((1, c.model.lang_max_seq_len, c.model.lang_emb_dim),
@@ -399,7 +406,7 @@ class NerfActTrainer(PerActTrainer):
                 pose = torch.as_tensor(src.train_pose(0))[None].to(dev)
                 focal = torch.tensor(src.focal, device=dev)
                 self._calibrate(rend, feat, pose, focal, step)
-                rgb = self._render(rend, feat, pose, focal, step, draws)[0]
+                rgb, embed, depth = self._render(rend, feat, pose, focal, step, draws)
                 gt = src.view(d0_, k0, 0)["rgb"]
                 rgb_np = rgb.float().cpu().numpy()
                 ps.append(psnr_np(rgb_np, gt))
@@ -411,6 +418,9 @@ class NerfActTrainer(PerActTrainer):
                     hrgb = self._render(rend, feat, hpose, focal, step, draws)[0]
                     ps_h.append(psnr_np(hrgb.float().cpu().numpy(),
                                         src.holdout_view(d0_, k0)["rgb"]))
+                if save_dir:
+                    _save_panel(save_dir, f"k{kid}_render_{step:06d}.png", gt, rgb_np,
+                                depth, embed, ps[-1])
             metrics["eval_psnr"] = float(np.mean(ps))
             if ps_fg:
                 metrics["eval_psnr_fg"] = float(np.mean(ps_fg))
@@ -440,20 +450,27 @@ class NerfActTrainer(PerActTrainer):
 
     def make_trainer(self, data: Optional[Iterator] = None,
                      eval_batch: Optional[Dict[str, torch.Tensor]] = None,
-                     eval_fn: Optional[Callable] = None) -> Trainer:
+                     eval_fn: Optional[Callable] = None,
+                     eval_save_dir: Optional[str] = None) -> Trainer:
         """The Trainer over `data` (synthetic batches without it). eval_fn
-        defaults to render_eval on eval_batch."""
+        defaults to render_eval on eval_batch (its panels to eval_save_dir)."""
         if eval_fn is None:
             def eval_fn(state, step):
-                return self.render_eval(state, step, batch=eval_batch)
+                return self.render_eval(state, step, batch=eval_batch, save_dir=eval_save_dir)
         return Trainer(self.cfg.train, self.train_step, data or self.synthetic_data(),
                        self.init_state, eval_fn=eval_fn)
 
 
-def _note_no_panel(save_dir: Optional[str]) -> None:
-    if save_dir:
-        print(f"[eval] no render panel is saved to {save_dir}: utils/visualize is "
-              "not ported")
+def _save_panel(save_dir: str, name: str, gt, rgb_np, depth, embed, psnr: float) -> None:
+    """The gt / render / depth / embed panel of one eval render."""
+    import os
+
+    from real_robot_nerf_actor_tpu_torch.utils.visualize import save_render_panel
+
+    os.makedirs(save_dir, exist_ok=True)
+    save_render_panel(os.path.join(save_dir, name), gt, rgb_np,
+                      depth=depth.float().cpu().numpy(), embed=embed.float().cpu().numpy(),
+                      psnr=psnr)
 
 
 def _blank() -> dict:
@@ -595,8 +612,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
                     help="comma list of demo ids held out of training (their decode "
                          "is reported as bc_holdout_*)")
     ap.add_argument("--eval-save-dir", default=None,
-                    help="accepted; no render panel is saved (utils/visualize is not "
-                         "ported)")
+                    help="write each eval's render panels (PNG) here")
     ap.add_argument("--sample-mode", default="uniform", choices=["uniform", "demo_cycle"])
     ap.add_argument("--init-policy-from", default=None,
                     help="checkpoint dir whose policy parameters seed a fresh run")
@@ -651,8 +667,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
             args.data_root, args.n_demos, exclude_demos=exclude,
             save_dir=args.eval_save_dir, eval_batch=eval_batch))
     else:
-        _note_no_panel(args.eval_save_dir)
-        trainer = tr.make_trainer(tr.synthetic_data(batch_size=args.batch_size))
+        trainer = tr.make_trainer(tr.synthetic_data(batch_size=args.batch_size),
+                                  eval_save_dir=args.eval_save_dir)
     return trainer.run(resume=not args.no_resume)
 
 

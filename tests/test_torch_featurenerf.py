@@ -640,6 +640,7 @@ def test_cli_trains_resumes_and_evaluates(tmp_path):
     assert np.isfinite(res["psnr_mean"]) and -1 <= res["ssim_mean"] <= 1
     assert "corr_acc" not in res["scenes"][0] and 0 <= res["scenes"][1]["corr_acc"] <= 1
     assert len(res["scenes"][1]["frame_ms"]) == 2
-    assert not (tmp_path / "panels").exists()
+    assert sorted(p.name for p in (tmp_path / "panels").iterdir()) == [
+        "novel_0.png", "novel_1.png"]
     import json
     assert json.load(open(out_json))["psnr_mean"] == res["psnr_mean"]

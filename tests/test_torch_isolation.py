@@ -504,3 +504,92 @@ def test_chip_smoke_has_a_bc_phase():
     assert "bc_phase(" in inspect.getsource(cs.main)
     assert cs.BC_BATCH == BCConfig().batch_size and cs.BC_HW == 224
     assert (cs.SAC_BATCH, cs.SAC_HW) == (128, 64)
+
+
+def test_teacher_panels_and_field_modes_run_without_jax_msgpack_or_matplotlib(tmp_path):
+    """In a process where jax, flax, the JAX package, msgpack, matplotlib and
+    PIL cannot be imported: read the committed JAX teacher, convert it and
+    run its feature maps; write a render panel and a voxel view; run
+    ConvEncoder, ImplicitNet, the quantized ResnetFC and the proposal field."""
+    import subprocess
+    import sys
+    blocked = FORBIDDEN + ("msgpack", "matplotlib", "PIL")
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {blocked!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np, torch\n"
+        "from real_robot_nerf_actor_tpu_torch.train import teacher\n"
+        "from real_robot_nerf_actor_tpu_torch.utils import visualize\n"
+        "from real_robot_nerf_actor_tpu_torch.models.encoder2d import ConvEncoder\n"
+        "from real_robot_nerf_actor_tpu_torch.models.implicit import ImplicitNet\n"
+        "from real_robot_nerf_actor_tpu_torch.models import NerfFieldConfig, VoxelNerfField\n"
+        "from real_robot_nerf_actor_tpu_torch.models.blocks import init_weights\n"
+        "tr = teacher.TeacherTrainer(teacher.TeacherConfig(), device='cpu')\n"
+        "st = teacher.load_teacher_state('artifacts/round5_featurenerf/teacher.msgpack',\n"
+        "                                tr.init_state())\n"
+        "f, a = tr.feature_maps(st, np.random.default_rng(0).uniform(0, 1, (2, 32, 32, 3)))\n"
+        "assert f.shape == (2, 16, 16, 64) and st.step == 3000\n"
+        "root = sys.argv[1]\n"
+        "img = visualize.save_render_panel(root + '/p.png', np.zeros((4, 5, 3)),\n"
+        "    np.ones((4, 5, 3)), depth=np.ones((4, 5)), psnr=3.0)\n"
+        "g = np.zeros((8, 8, 8, 10), np.float32); g[2, 3, 4, -1] = 1\n"
+        "v = visualize.visualize_voxel_grid(g, np.array([1, 1, 1]), save_path=root + '/v.png')\n"
+        "assert img.shape == (4, 19, 3) and v.shape[0] == 256\n"
+        "with torch.no_grad():\n"
+        "    assert init_weights(ConvEncoder(first_channels=8, mid_channels=8,\n"
+        "        last_channels=4))(torch.rand(1, 128, 128, 3)).shape == (1, 128, 128, 4)\n"
+        "    assert init_weights(ImplicitNet(d_in=3, dims=[8, 8]))(\n"
+        "        torch.rand(5, 3)).shape == (5, 4)\n"
+        "    for kw in (dict(quantized=True), dict(use_proposal=True)):\n"
+        "        fld = init_weights(VoxelNerfField(NerfFieldConfig(d_latent=4, d_embed=3,\n"
+        "            d_hidden=16, n_blocks=2, combine_layer=1, **kw)))\n"
+        "        out = fld(torch.rand(1, 3, 3, 3, 4), torch.rand(1, 20, 3) * 0.5,\n"
+        "                  torch.rand(1, 20, 3))\n"
+        "        assert torch.isfinite(out['sigma']).all()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_teacher_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    from real_robot_nerf_actor_tpu_torch.data.scene_dataset import (
+        load_scene, save_scene, synthesize_scene_npz)
+    from real_robot_nerf_actor_tpu_torch.train import teacher
+    path = str(tmp_path / "s.npz")
+    synthesize_scene_npz(path, n_views=2, hw=(8, 8))
+    sc = load_scene(path)
+    sc.depth = np.ones((2, 8, 8), np.float32)
+    save_scene(path, sc)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: teacher.TeacherTrainer(teacher.TeacherConfig()),
+                 lambda: teacher.main(["--data-root", str(tmp_path), "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_chip_smoke_has_a_teacher_phase_and_the_field_modes():
+    """chip_smoke.py drives the slice: phase 11 (the committed JAX teacher,
+    the first-step check with its two planted faults, TEACHER_STEPS steps,
+    the CLI's dump, the FeatureNeRF step, the novel-view panels, the two
+    models), the proposal and quantized frames of phase 4 and the
+    proposal joint step of phase 7 with its planted fault."""
+    import importlib.util
+    import inspect
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    src = inspect.getsource(cs.teacher_phase)
+    for needle in ("load_teacher_state(", "teacher.fit(", "teacher.main(", "novel.main(",
+                   '"uv_x_y_swapped"', '"temperature_dropped"', "ConvEncoder(",
+                   "ImplicitNet(", "read_png("):
+        assert needle in src, needle
+    assert cs.TEACHER_STEPS == 1000 and (REPO / cs.TEACHER_MSGPACK).is_file()
+    assert cs.TEACHER_SCENES == dict(n_scenes=8, n_views=12, hw=(128, 128))
+    assert "teacher_phase(" in inspect.getsource(cs.main)
+    assert "proposal_and_quantized_frames(" in inspect.getsource(cs.render_phase)
+    assert "coarse_embed_fault=True" in inspect.getsource(cs.nerfact_phase)

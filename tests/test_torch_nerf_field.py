@@ -67,8 +67,3 @@ def test_field_matches_flax(dtype, tol, compact, expanded):
                                    err_msg=k)
     sig = got["sigma"].numpy()
     assert (sig == 0).any() and (sig > 0).any()       # the mask bites
-
-
-def test_field_refuses_proposal_mode():
-    with pytest.raises(NotImplementedError):
-        VoxelNerfField(NerfFieldConfig(**KW, use_proposal=True))

@@ -390,11 +390,16 @@ def test_nerfact_cli_trains_on_recorded_demos(dataset, tmp_path, capsys, data):
     assert state.step == 2
     out = capsys.readouterr()
     assert "bc_render_score" in out.err and "eval_psnr_holdout" in out.err
-    assert "no render panel is saved" in out.out
+    # the JAX package's panel names: per kitchen on the multi-kitchen eval,
+    # render_eval's on one recording
+    panels = sorted(os.listdir(tmp_path / "panels"))
     if data != "multi_root":
         assert "demo_cycle: optimizer window 2" in out.out
+        assert panels == ["render_000002.png"]
     else:
         assert "bc_zerolang_exact" in out.err and "bc_holdout_exact" in out.err
+        assert panels == ["k0_render_000002.png", "k1_render_000002.png"]
+    assert read_png(str(tmp_path / "panels" / panels[0])).shape == (H, 4 * W + 6, 3)
     best = json.loads((tmp_path / "ckpt_best" / "best.json").read_text())
     assert best["key"] == "bc_render_score" and best["step"] == 2
 
