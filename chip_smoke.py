@@ -128,6 +128,16 @@ Phases, each reported on its own line:
      steps (p50, device time, the loss falling); the CLI's dump into the
      scenes and one FeatureNeRF step on them; eval/novel.py --out panels
      read back; ConvEncoder and ImplicitNet on the card against the CPU.
+ 12. camera: the reference's real-camera act path at full width (see
+     camera_phase): 8 raw 480 x 640 depth frames of the synthetic scene
+     through the RealSense filter chain on the host, then camera-frame and
+     world points, the crop, compat.VoxelGrid and phase 3's act step (the
+     kernels on) on the card, each piece against the CPU or the plain path,
+     with a planted transposed extrinsic; the CNN and VL policy heads, the
+     deep 3-D UNet and the augmentations at their users' widths against the
+     CPU (two planted faults: symmetric padding, exact GELU); the one-scatter
+     grid backward and unsorted compositing at the joint step's shapes;
+     tools/profile_policy.py and the kernel build cache.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -300,6 +310,51 @@ RGB_TOL = 0.04
 PSNR_MIN = 45.0
 # rows of each quantized layer's input held to the CPU (an int32 matmul there)
 TWIN_ROWS = 4096
+# the camera phase: 8 raw frames of a RealSense D435's 480 x 640 depth stream
+# (data/synthetic.py REALSENSE_INTRINSICS, camera_extrinsic) of the synthetic
+# scene at 2 M points (about 0.8 of the pixels see one), after CAMERA_WARMUP
+# untimed act steps; the models at their users' widths: BC batch 64 of 128 x
+# 128 x 3 images, 4 low-dim inputs and CLIP's pooled 512 for the CNN heads;
+# serve.yaml's 8000 patch tokens of 128 against CLIP's 77 x 512 tokens for
+# the VL transformer (depth 1, 6 heads x 64); the joint step's 100^3 x 64 grid
+# at 49152 samples (512 rays x 96) and its 512 rays of 64 + 32 samples
+CAMERA = dict(hw=(480, 640), frames=8, n_points=2000000)
+CAMERA_WARMUP = 16
+CAMERA_MODELS = dict(batch=64, hw=(128, 128), low_dim=4, lang_dim=512,
+                     vl_tokens=(8000, 128), lang_tokens=77)
+FASTBWD = dict(grid=(1, 100, 100, 100, 64), samples=49152)
+COMPOSITE = dict(rays=512, samples=96)
+# world points on the card vs the CPU, of their largest |value| (fp32
+# products in another order: an ulp is 6e-8)
+POINT_TOL = 1e-6
+# the camera phase's models in fp32, tensor by tensor: a gradient of fewer
+# than SMALL_LEAF entries (biases, norms' affine, a gate, a small head) by
+# its largest gap; a larger one by the share of its entries beyond GRAD_TOL
+# of its scale plus its slack, at most GRAD_SHARE. A ReLU kink that the
+# card's rounding moves across moves every entry of a weight's gradient row
+# that it feeds (an H100 moved 90 of SiameseNet's 18,432 conv1 weight
+# gradients beyond a bound widened by the CPU's fp32-vs-float64 gap, where
+# float64 card and CPU agree to 3e-15); float64 on the card against the
+# CPU, every entry within F64_TOL, is the tight check
+GRAD_SHARE = 1e-3
+SMALL_LEAF = 10 ** 4
+# compat.VoxelGrid's grid of those points, card vs CPU: the occupancy equal
+# everywhere, and at most VOXEL_DIFF voxels with a channel more than 1e-5
+# apart (the scatter's atomics add a voxel's points in another order; a
+# point within an ulp of a bin's edge may land in the next bin)
+VOXEL_DIFF = 10
+# bf16 VL block on the card vs the CPU's bf16, of each tensor's scale, plus
+# the CPU's own bf16-vs-fp32 gap at each entry
+BF16_FWD = 2 ** -6
+BF16_GRAD = 2 ** -5
+# the one-scatter grid gradient vs autograd's through grid_sample_3d, of its
+# scale: fp32 sums in another order (index_add_'s atomics); in bf16 autograd
+# takes the lerp weights in bf16 (each up to 2^-9 off) and rounds every
+# corner's product and sum, the fast path weighs in fp32 and rounds once
+FASTBWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -5}
+# unsorted vs sorted compositing, of each output's scale (a masked matmul
+# against a cumsum)
+COMPOSITE_TOL = 1e-4
 
 
 def fail(msg):
@@ -3221,6 +3276,615 @@ def mlp_err(got, want):
     return errs[worst], tols[worst], max(over)
 
 
+def camera_phase(torch, np, dev, card, server_on, server_off):
+    """Phase 12: the reference's real-camera act path, the last models and
+    ops, the profiling tool and the kernel cache.
+
+    a. camera: CAMERA["frames"] raw depth frames at 480 x 640 of the
+       synthetic scene (CAMERA["n_points"] points splatted by camera_frames
+       through a RealSense D435's intrinsics, seeded noise and holes) go
+       through DepthFilterPipeline on the host (the temporal state carried;
+       a second pipeline must give the same bits), then on the card
+       depth_to_pointcloud, transform_points by the camera-to-world
+       extrinsic and the crop to serve.yaml's bounds, within POINT_TOL of
+       the same on the CPU (the extrinsic applied transposed, a planted
+       fault, must fail that); compat.VoxelGrid's grid on the card against
+       the CPU's (occupancy equal, at most VOXEL_DIFF voxels with a channel
+       more than 1e-5 apart); then CameraActor.step with
+       phase 3's policy (kernels on) over the frames: the host ms a frame of
+       the filters, the act p50, launches a step (flash attention 8, conv
+       1, stats 3, through their own kernels), one profiled step (device
+       ms, busy share, the kernels counted in the profile), and
+       euler_to_quaternion of each decoded rotation. Under deterministic
+       algorithms, compat.VoxelGrid -> the policy ->
+       compat.choose_highest_action must decode the same action as
+       CameraActor.step on the same points, and the plain path's logits
+       (phase 3's server_off) stay within ACT_TOL of the kernel path's.
+    b. camera_models: CNNLangAndFcsNet, CNNAndFcsNet (and SpatialSoftmax2D
+       on its last conv map) and SiameseNet (two streams) at
+       CAMERA_MODELS' widths; Visual3DLangTransformer (depth 1, 6 x 64) over
+       8000 x 128 visual against 77 x 512 language tokens in fp32, bf16
+       and float64; LanguageInformedVisualAttention on the policy's d0 of
+       the first frame; MultiLayer3DEncoder on that frame's CPU-built grid in train
+       and in eval mode: the first forward and backward on the card against
+       the CPU's: in fp32 (fp32_check, tensor by tensor) every output (the
+       running statistics in train mode too) within FWD_TOL of its scale,
+       every gradient (of the weights and inputs) of fewer than SMALL_LEAF
+       entries within GRAD_TOL of its scale and at most GRAD_SHARE of a
+       larger one's entries beyond it, an output's bound widened by ULP_K
+       times the CPU's own fp32-vs-float64 gap (phase 11's rule), a
+       gradient's by the larger of that and ULP_K times its response on
+       the CPU to a one-ulp move of every weight and input (phase 10's
+       rule; gaps_unwidened without either); in float64
+       every output and gradient within F64_TOL of its scale; the VL
+       transformer's bf16 within BF16_FWD / BF16_GRAD of the scale plus the
+       CPU's own bf16-vs-fp32 gap. The augmentations on phase 10 e's SAC
+       pixel batch with the CPU's draws must equal the CPU's. Planted
+       faults: TF32 on must fail the fp32 check of every model whose
+       result it changes (it leaves the language gate's 1 x 512 product
+       bit-equal, "no-op"); torch's
+       symmetric padding in the CNN trunk (fp32 check) and exact GELU in
+       the VL block (float64 check) must fail by more than 10 times their
+       bounds.
+    c. camera_ops: grid_sample_3d_fastbwd on FASTBWD's grid and samples in
+       fp32 and bf16: the forward equal to grid_sample_3d, the grid
+       gradient within FASTBWD_TOL of autograd's through grid_sample_3d,
+       both backwards' device ms; composite_unsorted on COMPOSITE's rays
+       against composite on the sorted samples (COMPOSITE_TOL).
+    d. camera_tools: tools/profile_policy.py once (its top op classes);
+       enable_persistent_cache into a temporary directory, after which the
+       next load of csrc/corner_lerp.cu builds there and its launch equals
+       the plain version.
+    Returns nothing; fails on any check."""
+    import os
+    import tempfile
+    import types
+
+    import torch.nn.functional as F
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch import compat
+    from real_robot_nerf_actor_tpu_torch.data import augment
+    from real_robot_nerf_actor_tpu_torch.data.depth_filters import (
+        DepthFilterPipeline, depth_to_pointcloud)
+    from real_robot_nerf_actor_tpu_torch.data.synthetic import (
+        REALSENSE_INTRINSICS, camera_extrinsic, camera_frames, make_synthetic_scene)
+    from real_robot_nerf_actor_tpu_torch.models import MultiLayer3DEncoder, encoder2d
+    from real_robot_nerf_actor_tpu_torch.models import vl_attention
+    from real_robot_nerf_actor_tpu_torch.models.blocks import BatchNorm, init_weights
+    from real_robot_nerf_actor_tpu_torch.models.cnn_policies import (
+        CNNAndFcsNet, CNNLangAndFcsNet, SiameseNet, SpatialSoftmax2D)
+    from real_robot_nerf_actor_tpu_torch.models.vl_attention import (
+        LanguageInformedVisualAttention, Visual3DLangTransformer)
+    from real_robot_nerf_actor_tpu_torch.ops import _build, discretize_action
+    from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import flash_attention
+    from real_robot_nerf_actor_tpu_torch.ops.compositing import composite, composite_unsorted
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.ops.geometry import (
+        euler_to_quaternion, transform_points, voxel_index_to_point)
+    from real_robot_nerf_actor_tpu_torch.ops.grid_sample import (
+        grid_sample_3d, grid_sample_3d_fastbwd)
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp, corner_lerp_plain
+    from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import spatial_stats_3d
+    from real_robot_nerf_actor_tpu_torch.tools import profile_policy
+    from real_robot_nerf_actor_tpu_torch.train.serve import CameraActor, camera_points
+    from real_robot_nerf_actor_tpu_torch.utils.cache import enable_persistent_cache
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cpu_s = [0.0]      # seconds of the CPU references
+
+    def on_cpu(fn):
+        t = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            cpu_s[0] += time.perf_counter() - t
+
+    # ------------------------------------------------------------ a. camera
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(seed=0, n_points=CAMERA["n_points"])
+    K, ext = REALSENSE_INTRINSICS, camera_extrinsic()
+    raw, rgb = camera_frames(scene, K, ext, CAMERA["hw"], CAMERA["frames"], seed=0)
+    frames_s = time.perf_counter() - t0
+    pipe, filtered, filter_ms = DepthFilterPipeline(), [], []
+    for f in raw:
+        t = time.perf_counter()
+        filtered.append(pipe(f))
+        filter_ms.append((time.perf_counter() - t) * 1e3)
+    again = DepthFilterPipeline()
+    if not all(np.array_equal(again(f), w) for f, w in zip(raw, filtered)):
+        fail("camera: a second run of the host filters gave other bits")
+
+    bounds, ext_t = server_on.bounds, torch.as_tensor(ext, device=dev)
+
+    def world(depth, mat):
+        cam = depth_to_pointcloud(depth, K, device=mat.device).reshape(-1, 3)
+        return transform_points(cam, mat)
+
+    point_gaps, fault_gaps, counts, crop_cpu = [], [], [], []
+    transposed = ext.copy()
+    transposed[:3, :3] = ext[:3, :3].T
+    for d in filtered:
+        want = on_cpu(lambda: world(d, ext_t.cpu()))
+        scale = want.abs().max().item()
+        point_gaps.append((world(d, ext_t).cpu() - want).abs().max().item() / scale)
+        fault_gaps.append((world(d, torch.as_tensor(transposed, device=dev)).cpu()
+                           - want).abs().max().item() / scale)
+        counts.append(int(camera_points(d, rgb, K, ext_t, bounds)[0].shape[0]))
+        crop_cpu.append(int(on_cpu(lambda: camera_points(d, rgb, K, ext_t.cpu(),
+                                                         bounds.cpu()))[0].shape[0]))
+    if not max(point_gaps) <= POINT_TOL:
+        fail(f"camera: world points on the card vs the CPU {max(point_gaps)} > {POINT_TOL}")
+    if not min(fault_gaps) > 10 * POINT_TOL:
+        fail(f"camera: the point check does not see the extrinsic transposed ({fault_gaps})")
+
+    m, v = server_on.voxelizer.max_num_coords, server_on.model_cfg.voxel_size
+    grid_dev = compat.VoxelGrid(SERVE_FIELD["coord_bounds"], v, device=dev, max_num_coords=m)
+    grid_cpu = compat.VoxelGrid(SERVE_FIELD["coord_bounds"], v, device="cpu", max_num_coords=m)
+    pts0, cols0 = camera_points(filtered[0], rgb, K, ext_t, bounds)
+    vox0 = grid_dev.coords_to_bounding_voxel_grid(pts0[None], cols0[None])
+    vox0_cpu = on_cpu(lambda: grid_cpu.coords_to_bounding_voxel_grid(pts0.cpu()[None],
+                                                                      cols0.cpu()[None]))
+    vgap = (vox0.cpu() - vox0_cpu).abs()
+    voxel_diff = dict(occupancy=int((vgap[..., -1] > 0).sum()),
+                      any_channel_over_1e_5=int((vgap.amax(-1) > 1e-5).sum()),
+                      max_gap=vgap.max().item(),
+                      occupied=int((vox0_cpu[..., -1] > 0).sum()))
+    if voxel_diff["occupancy"] or voxel_diff["any_channel_over_1e_5"] > VOXEL_DIFF:
+        fail(f"camera: compat.VoxelGrid on the card vs the CPU {voxel_diff}")
+
+    actor_on, actor_off = CameraActor(server_on, K, ext), CameraActor(server_off, K, ext)
+    prop = (np.array([0.35, 0.2, 0.1], np.float32), np.array([0.0, 0.0, 90.0], np.float32), 1.0)
+    for i in range(CAMERA_WARMUP):
+        actor_on.step(filtered[i % len(filtered)], rgb, *prop).cpu()
+    counters = (flash_attention, conv3d_k3, spatial_stats_3d)
+    for c in counters:
+        c.launches = 0
+    flash_attention.wgmma_launches = conv3d_k3.wgmma_launches = 0
+    spatial_stats_3d.cuda_launches = 0
+    act_ms, packed_on = [], []
+    for d in filtered:
+        t = time.perf_counter()
+        packed_on.append(actor_on.step(d, rgb, *prop).cpu())
+        act_ms.append((time.perf_counter() - t) * 1e3)
+    n = len(filtered)
+    per_step = {c.__name__: c.launches / n for c in counters}
+    per_step.update(flash_attention_wgmma=flash_attention.wgmma_launches / n,
+                    conv3d_k3_wgmma=conv3d_k3.wgmma_launches / n,
+                    spatial_stats_3d_cuda=spatial_stats_3d.cuda_launches / n)
+    want_counts = {"flash_attention": 8, "conv3d_k3": 1, "spatial_stats_3d": 3,
+                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1,
+                   "spatial_stats_3d_cuda": 3}
+    if per_step != want_counts:
+        fail(f"camera: launches per act step {per_step}, want {want_counts}")
+    plain_ms = []
+    for d in filtered:
+        t = time.perf_counter()
+        actor_off.step(d, rgb, *prop).cpu()
+        plain_ms.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        actor_on.step(filtered[-1], rgb, *prop).cpu()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = device_rows(torch, prof)
+    device_ms = sum(r[1] for r in rows)
+    profiled = {k: v for k, v in kernel_counts(prof).items()
+                if k in ("flash_attention", "conv3d_k3", "spatial_stats_3d")}
+    if profiled != {"flash_attention": 8, "conv3d_k3": 1, "spatial_stats_3d": 3}:
+        fail(f"camera: the profiled step counted {profiled}")
+    rot = torch.stack([p[0, 3:6] for p in packed_on]).to(dev)
+    quats = euler_to_quaternion(torch.deg2rad(rot))
+    if not ((quats.norm(dim=-1) - 1).abs().max().item() <= 1e-6):
+        fail(f"camera: quaternions off the unit sphere {quats}")
+
+    # the compat path and the plain path on the same points, deterministic
+    decode_equal, logit_gaps = [], {}
+    rr = server_on.cfg.rotation_resolution
+    with deterministic_algorithms(torch) as nondeterministic, torch.inference_mode():
+        for d in filtered:
+            want = actor_on.step(d, rgb, *prop)
+            pts, cols = camera_points(d, rgb, K, ext_t, bounds)
+            vox = grid_dev.coords_to_bounding_voxel_grid(pts[None], cols[None])
+            prev = discretize_action(torch.as_tensor(prop[0], device=dev)[None],
+                                     torch.as_tensor(prop[1], device=dev)[None],
+                                     torch.tensor([prop[2]], device=dev),
+                                     torch.ones(1, device=dev), bounds, v, rr)
+            proprio = torch.cat([prev.trans.float(), prev.rot_grip.float()], dim=-1)
+            out_on = server_on.net(vox, proprio, server_on.lang)
+            coords, rot_grip, coll = compat.choose_highest_action(
+                out_on[0][:, None], out_on[1], out_on[2], rr)
+            got = torch.cat([voxel_index_to_point(coords, v, bounds),
+                             (rot_grip[:, :3].float() + 1.0) * rr - 180.0,
+                             rot_grip[:, 3:4].float(), coll[:, :1].float()], dim=-1)
+            decode_equal.append(bool(torch.equal(got, want)))
+            out_off = server_off.net(vox, proprio, server_off.lang)
+            for name, a, b in zip(("q_trans", "q_rot_grip", "q_collision"), out_on, out_off):
+                a, b = a.float(), b.float()
+                scale = max(1.0, b.abs().max().item())
+                gap = (a - b).abs().max().item() / scale
+                logit_gaps[name] = max(logit_gaps.get(name, 0.0), gap)
+    d0 = out_on[3].float()
+    emit("camera", frames=n, hw=list(CAMERA["hw"]), scene_points=CAMERA["n_points"],
+         frames_s=frames_s, filter_host_ms=filter_ms, filter_host_ms_p50=statistics.median(filter_ms),
+         raw_valid_share=float((raw > 0).mean()), filtered_valid=[int((d > 0).sum()) for d in filtered],
+         cropped_points=counts, cropped_points_cpu=crop_cpu, max_num_coords=m,
+         voxel_grid="truncated" if min(counts) >= m else ("padded" if max(counts) < m else "both"),
+         point_gap_of_scale=max(point_gaps), point_tol=POINT_TOL,
+         extrinsic_transposed=min(fault_gaps), voxels_card_vs_cpu=voxel_diff,
+         act_p50_ms=statistics.median(act_ms), act_ms=act_ms,
+         plain_p50_ms=statistics.median(plain_ms), launches_per_step=per_step,
+         profiled_launches=profiled, step_wall_ms=wall_ms, device_ms=device_ms,
+         device_busy_share=device_ms / wall_ms, device_events=sum(r[2] for r in rows),
+         top=[{"name": k[:80], "ms": v, "count": c} for k, v, c in rows[:8]],
+         actions=[np.round(p[0].numpy().astype(float), 4).tolist() for p in packed_on],
+         quaternions=np.round(quats.cpu().numpy().astype(float), 5).tolist(), card=card)
+    emit("camera_compare", compat_decode_equal=decode_equal, logit_gap_of_scale=logit_gaps,
+         tol_of_scale=ACT_TOL, ops_without_deterministic_version=nondeterministic, card=card)
+    if not all(decode_equal):
+        fail(f"camera: compat.VoxelGrid -> policy -> decode differs from CameraActor.step "
+             f"({decode_equal})")
+    if not max(logit_gaps.values()) <= ACT_TOL:
+        fail(f"camera: kernel path vs plain path logits {logit_gaps}")
+
+    # ------------------------------------------------------ b. camera_models
+    cm = CAMERA_MODELS
+    b, (h, w) = cm["batch"], cm["hw"]
+    gen = torch.Generator().manual_seed(11)
+    images = torch.rand((b, h, w, 3), generator=gen)
+    low = torch.randn((b, cm["low_dim"]), generator=gen)
+    lang_vec = torch.randn((b, cm["lang_dim"]), generator=gen)
+    visual = torch.randn((1, *cm["vl_tokens"]), generator=gen)
+    lang_tok = torch.randn((1, cm["lang_tokens"], cm["lang_dim"]), generator=gen)
+    pooled = torch.randn((1, cm["lang_dim"]), generator=gen)
+    d0_cpu = d0.cpu().clone()      # out of inference mode
+    # the UNet's input: the CPU's grid of the first frame, the same in every
+    # run (the card's grid moves in the last bits of its means from run to
+    # run with index_add_'s atomics, and the deep layers' train-mode
+    # gradients with them: one such run read 1.40 of the bound)
+    vox_cpu = vox0_cpu.float()
+
+    def seeded(module, seed):
+        def make():
+            mod = init_weights(module(), torch.Generator().manual_seed(seed))
+            g = torch.Generator().manual_seed(seed + 1)
+            with torch.no_grad():
+                for sub in mod.modules():
+                    if isinstance(sub, BatchNorm):   # statistics and affine off their init
+                        sub.running_mean.copy_(torch.randn(sub.running_mean.shape, generator=g) * 0.1)
+                        sub.running_var.uniform_(0.5, 1.5, generator=g)
+                        sub.weight.uniform_(0.5, 1.5, generator=g)
+                        sub.bias.copy_(torch.randn(sub.bias.shape, generator=g) * 0.1)
+                    if isinstance(sub, vl_attention.VLCrossAttention):
+                        sub.gate.fill_(0.7)           # flax's zero gate would hide the attention
+            return mod
+        return make
+
+    def first_pass(make, inputs, call, device, dtype=torch.float32, buffers=False,
+                   cots=None, time_it=False):
+        """The first forward and backward of make() on `device` against the
+        cotangents `cots` (drawn from a seed by the first call, which fills
+        the dict): outputs (and the buffers, when asked), gradients of every
+        weight and input, as float64 CPU tensors; with time_it, "ms" of a
+        second forward and backward, synchronised, without the copies."""
+        mod = make().to(device=device, dtype=dtype)
+        if dtype == torch.float64:
+            for sub in mod.modules():
+                if getattr(sub, "dtype", None) is not None:
+                    sub.dtype = dtype
+        xs = [x.detach().to(device=device, dtype=dtype).clone().requires_grad_() for x in inputs]
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        outs = call(mod, xs)
+        if not cots:
+            g = torch.Generator().manual_seed(4)
+            cots.update({k: torch.randn(o.shape, generator=g) for k, o in outs.items()})
+        c_dev = {k: c.to(device, acc) for k, c in cots.items()}
+
+        def backward(res):
+            sum((o.to(acc) * c_dev[k]).sum() for k, o in res.items()).backward()
+
+        backward(outs)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        rec = {"outputs": {k: o.detach().double().cpu() for k, o in outs.items()},
+               "grads": {**{k: p.grad.double().cpu() for k, p in mod.named_parameters()
+                            if p.grad is not None},
+                         **{f"input{i}": x.grad.double().cpu() for i, x in enumerate(xs)}},
+               "losses": {}}
+        if buffers:
+            rec["outputs"].update({k: t.double().cpu() for k, t in mod.named_buffers()})
+        if time_it:
+            del outs
+            mod.zero_grad(set_to_none=True)
+            for x in xs:
+                x.grad = None
+            t = time.perf_counter()
+            backward(call(mod, xs))
+            torch.cuda.synchronize()
+            rec["ms"] = (time.perf_counter() - t) * 1e3
+        return rec
+
+    def bf16_ratio(got, want16, want32):
+        """Largest |card - CPU| of the bf16 run over BF16_FWD (outputs) or
+        BF16_GRAD (gradients) of the scale plus the CPU's own bf16-vs-fp32
+        gap at each entry."""
+        worst = 0.0
+        for kind, rel in (("outputs", BF16_FWD), ("grads", BF16_GRAD)):
+            for k, w in want16[kind].items():
+                tol = rel * w.abs().max() + (w - want32[kind][k]).abs() + 1e-30
+                worst = max(worst, ((got[kind][k] - w).abs() / tol).max().item())
+        return worst
+
+    def fp32_check(got, want, slack, out_slack):
+        """The fp32 check as ratios to their bounds, each tensor on its own
+        (pass: every ratio <= 1): an output by its largest gap over FWD_TOL
+        of its scale plus out_slack; a gradient of fewer than SMALL_LEAF
+        entries by its largest gap over GRAD_TOL of its scale plus slack; a
+        larger gradient by the share of its entries beyond that bound, over
+        GRAD_SHARE. Returns the worst ratio, its tensor and the three
+        worst."""
+        ratios = {f"output:{k}": ((got["outputs"][k] - w).abs().max()
+                                  / (FWD_TOL * w.abs().max() + out_slack[k] + 1e-30)).item()
+                  for k, w in want["outputs"].items()}
+        for k, w in want["grads"].items():
+            beyond = (got["grads"][k] - w).abs() / (GRAD_TOL * w.abs().max() + slack[k] + 1e-30)
+            ratios[k] = (beyond.max().item() if w.numel() < SMALL_LEAF
+                         else (beyond > 1).double().mean().item() / GRAD_SHARE)
+        worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+        return {"of_bound": worst[0][1], "name": worst[0][0], "worst": dict(worst)}
+
+    def ulp_moved(make, inputs, sign):
+        """make() and copies of the inputs, every weight and input entry
+        moved one ulp (move_one_ulp's coins)."""
+        def moved():
+            mod = make()
+            move_one_ulp(torch, list(mod.parameters()), sign)
+            return mod
+        xs = [x.clone() for x in inputs]
+        move_one_ulp(torch, xs, sign)
+        return moved, xs
+
+    def f64_gap(got, want):
+        return max(((got[k][n] - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+                   for k in ("outputs", "grads") for n, w in want[k].items())
+
+    cnn_cfg = dict(in_channels=3, image_hw=(h, w), low_dim=cm["low_dim"])
+
+    def unet_outputs(res):
+        out, voxel_list = res
+        return {"out": out, "skip25": voxel_list[1], "skip50": voxel_list[2]}
+
+    def keypoints(mod, x, lang=None):
+        return SpatialSoftmax2D()(mod._trunk(x, lang))
+
+    models = {
+        "cnn_lang_and_fcs": (seeded(lambda: CNNLangAndFcsNet(lang_dim=cm["lang_dim"], **cnn_cfg), 20),
+                             [images, low, lang_vec],
+                             lambda mod, xs: {"out": mod(*xs),
+                                              "keypoints": keypoints(mod, xs[0], xs[2])}),
+        "cnn_and_fcs": (seeded(lambda: CNNAndFcsNet(**cnn_cfg), 21), [images, low],
+                        lambda mod, xs: {"out": mod(*xs), "keypoints": keypoints(mod, xs[0])}),
+        "siamese": (seeded(lambda: SiameseNet(3), 22), [images, images.flip(1)],
+                    lambda mod, xs: {"out": mod(xs)}),
+        "vl_transformer": (seeded(lambda: Visual3DLangTransformer(cm["vl_tokens"][1],
+                                                                  cm["lang_dim"]), 23),
+                           [visual, lang_tok], lambda mod, xs: {"out": mod(*xs)}),
+        "language_gate": (seeded(lambda: LanguageInformedVisualAttention(d0_cpu.shape[-1],
+                                                                         cm["lang_dim"]), 24),
+                          [d0_cpu, pooled], lambda mod, xs: {"out": mod(*xs)}),
+        "unet_train": (seeded(lambda: MultiLayer3DEncoder(vox_cpu.shape[-1]), 25), [vox_cpu],
+                       lambda mod, xs: unet_outputs(mod(xs[0], train=True))),
+        "unet_eval": (seeded(lambda: MultiLayer3DEncoder(vox_cpu.shape[-1]), 25), [vox_cpu],
+                      lambda mod, xs: unet_outputs(mod(xs[0]))),
+    }
+    make16 = seeded(lambda: Visual3DLangTransformer(cm["vl_tokens"][1], cm["lang_dim"],
+                                                    dtype=torch.bfloat16), 23)
+    results = {}
+    for name, (make, inputs, call) in models.items():
+        buffers, cots = name.startswith("unet"), {}
+        want = on_cpu(lambda: first_pass(make, inputs, call, cpu, buffers=buffers, cots=cots))
+        want64 = on_cpu(lambda: first_pass(make, inputs, call, cpu, torch.float64, buffers,
+                                           cots))
+        # each fp32 bound widens by ULP_K times the part's own fp32 error, its
+        # gap to float64 on the CPU (phase 11's rule; read on the CPU only):
+        # ReLU and leaky-ReLU kinks that rounding moves across, and the
+        # T = 0.01 softmax of the keypoints, set those gaps; float64 card vs
+        # CPU (F64_TOL), where rounding moves no kink, is the tight check. A
+        # gradient's bound widens by the larger of that and ULP_K times its
+        # response on the CPU to a one-ulp move of every weight and input
+        # (up, then down; phase 10's rule, inputs added): one kink that the
+        # card's rounding moves across moves a whole row of a weight's
+        # gradient, and all of a bias
+        f64_slack = {k: ULP_K * (w - want64["grads"][k]).abs().max()
+                     for k, w in want["grads"].items()}
+        out_slack = {k: ULP_K * (w - want64["outputs"][k]).abs().max()
+                     for k, w in want["outputs"].items()}
+        moved = [on_cpu(lambda: first_pass(*ulp_moved(make, inputs, sign), call, cpu,
+                                           buffers=buffers, cots=cots))["grads"]
+                 for sign in (1, -1)]
+        ulp_slack = {k: ULP_K * max((m[k] - w).abs().max() for m in moved)
+                     for k, w in want["grads"].items()}
+        slack = {k: torch.maximum(f64_slack[k], ulp_slack[k]) for k in f64_slack}
+        del moved
+        got = first_pass(make, inputs, call, dev, buffers=buffers, cots=cots, time_it=True)
+        got64 = first_pass(make, inputs, call, dev, torch.float64, buffers, cots)
+        with tf32(torch, True):
+            got_tf32 = first_pass(make, inputs, call, dev, buffers=buffers, cots=cots)
+        ratios = {**{k: (slack[k] / (GRAD_TOL * w.abs().max() + 1e-30)).item()
+                     for k, w in want["grads"].items()},
+                  **{k: (out_slack[k] / (FWD_TOL * w.abs().max() + 1e-30)).item()
+                     for k, w in want["outputs"].items()}}
+        tf32_changed = any(not torch.equal(got_tf32[kind][k], got[kind][k])
+                           for kind in ("outputs", "grads") for k in got[kind])
+
+        def check(res):
+            return fp32_check(res, want, slack, out_slack)
+
+        r = dict(check=check(got), planted_tf32=check(got_tf32) if tf32_changed else "no-op",
+                 gaps_unwidened=update_gaps(torch, got, want, 0.0),
+                 slack_of_tol=dict(sorted(ratios.items(),
+                                         key=lambda kv: -kv[1])[:3]),
+                 float64_max_gap_of_scale=f64_gap(got64, want64), fwd_bwd_ms=got["ms"])
+        del got64, got_tf32
+        if name == "cnn_and_fcs":
+            same_pads = encoder2d._same_pads
+            encoder2d._same_pads = lambda n_, k_, s_: (k_ // 2, k_ // 2)
+            try:
+                r["planted_symmetric_padding"] = check(
+                    first_pass(make, inputs, call, dev, cots=cots))
+            finally:
+                encoder2d._same_pads = same_pads
+        if name == "vl_transformer":
+            want16 = on_cpu(lambda: first_pass(make16, inputs, call, cpu, cots=cots))
+            got16 = first_pass(make16, inputs, call, dev, cots=cots, time_it=True)
+            r["bf16_of_bound"] = bf16_ratio(got16, want16, want)
+            r["bf16_fwd_bwd_ms"] = got16["ms"]
+            exact = types.SimpleNamespace(gelu=lambda x, approximate="none": F.gelu(x))
+            vl_attention.F, tanh_f = exact, vl_attention.F
+            try:
+                r["planted_exact_gelu_float64_of_tol"] = f64_gap(
+                    first_pass(make, inputs, call, dev, torch.float64, cots=cots),
+                    want64) / F64_TOL
+            finally:
+                vl_attention.F = tanh_f
+        results[name] = r
+        del want, want64, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # augment: the SAC pixel batch of phase 10 e, the CPU's draws fed to the card
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.uniform(0, 1, (SAC_BATCH, SAC_HW, SAC_HW, 3)).astype(np.float32))
+    ga = torch.Generator().manual_seed(12)
+    offsets = [torch.randint(0, 9, (SAC_BATCH,), generator=ga) for _ in range(2)]
+    factors = [1.0 + (torch.rand((SAC_BATCH, 1, 1, 1), generator=ga) * 0.8 - 0.4)
+               for _ in range(3)]
+    coin = torch.rand((SAC_BATCH, 1, 1, 1), generator=ga)
+    pixels_dev = pixels.to(dev)
+    aug = {}
+    for name, fn in (("random_shift", lambda x: augment.random_shift(x, 4, offsets=offsets)),
+                     ("color_jitter", lambda x: augment.color_jitter(x, factors=factors)),
+                     ("random_grayscale", lambda x: augment.random_grayscale(x, 0.2, u=coin))):
+        want = fn(pixels)
+        got = fn(pixels_dev).cpu()
+        aug[name] = {"equal": bool(torch.equal(got, want)),
+                     "max_gap": (got - want).abs().max().item(),
+                     "ms": median_ms(torch, lambda: fn(pixels_dev), 10)}
+    emit("camera_models", **results, augment=aug, fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
+         bf16_fwd=BF16_FWD, bf16_grad=BF16_GRAD, f64_tol=F64_TOL,
+         cpu_reference_s=cpu_s[0], card=card)
+    for name, r in results.items():
+        if not (r["check"]["of_bound"] <= 1.0 and r["float64_max_gap_of_scale"] <= F64_TOL):
+            fail(f"camera_models {name}: card vs CPU {r['check']}, "
+                 f"float64 {r['float64_max_gap_of_scale']}")
+        if r["planted_tf32"] != "no-op" and not r["planted_tf32"]["of_bound"] > 1.0:
+            fail(f"camera_models {name}: the fp32 check does not see TF32 on "
+                 f"({r['planted_tf32']})")
+    if all(r["planted_tf32"] == "no-op" for r in results.values()):
+        fail("camera_models: TF32 on changed no model's fp32 result")
+    cnn = results["cnn_and_fcs"]["planted_symmetric_padding"]
+    if not cnn["of_bound"] > 10:
+        fail(f"camera_models: symmetric padding not seen by 10x its bound ({cnn})")
+    vl = results["vl_transformer"]
+    if not vl["bf16_of_bound"] <= 1.0:
+        fail(f"camera_models vl_transformer: bf16 {vl['bf16_of_bound']} of its bound")
+    if not vl["planted_exact_gelu_float64_of_tol"] > 10:
+        fail(f"camera_models: exact GELU not seen by 10x its bound "
+             f"({vl['planted_exact_gelu_float64_of_tol']})")
+    if not all(a["equal"] for a in aug.values()):
+        fail(f"camera_models: augmentations on the card differ from the CPU's {aug}")
+
+    # --------------------------------------------------------- c. camera_ops
+    g = torch.Generator(device=dev).manual_seed(13)
+    ops = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        grid = torch.randn(FASTBWD["grid"], generator=g, device=dev).to(dtype)
+        coords = torch.rand((1, FASTBWD["samples"], 3), generator=g, device=dev) * 2 - 1
+        cot = torch.randn((1, FASTBWD["samples"], FASTBWD["grid"][-1]), generator=g,
+                          device=dev).to(dtype)
+        fast, auto = grid.clone().requires_grad_(), grid.clone().requires_grad_()
+        out_f, out_a = grid_sample_3d_fastbwd(fast, coords), grid_sample_3d(auto, coords)
+        (gf,) = torch.autograd.grad(out_f, fast, cot, retain_graph=True)
+        (g_a,) = torch.autograd.grad(out_a, auto, cot, retain_graph=True)
+        err = ((gf.float() - g_a.float()).abs().max() / g_a.float().abs().max()).item()
+        ops[f"fastbwd_{dname}"] = dict(
+            forward_equal=bool(torch.equal(out_f, out_a)), grad_gap_of_scale=err,
+            tol=FASTBWD_TOL[dname],
+            fastbwd_device_ms=profiled_ms(torch, lambda: torch.autograd.grad(
+                out_f, fast, cot, retain_graph=True), 5),
+            autograd_device_ms=profiled_ms(torch, lambda: torch.autograd.grad(
+                out_a, auto, cot, retain_graph=True), 5))
+        del grid, fast, auto, out_f, out_a, gf, g_a
+        torch.cuda.empty_cache()
+    n_rays, k_s = COMPOSITE["rays"], COMPOSITE["samples"]
+    z = torch.rand((n_rays, k_s), generator=g, device=dev) * 2.8 + 1.2
+    rays = torch.cat([torch.randn((n_rays, 3), generator=g, device=dev),
+                      F.normalize(torch.randn((n_rays, 3), generator=g, device=dev), dim=-1),
+                      torch.full((n_rays, 1), 1.2, device=dev),
+                      torch.full((n_rays, 1), 4.0, device=dev)], -1)
+    rgbs = torch.rand((n_rays, k_s, 3), generator=g, device=dev)
+    sig = torch.rand((n_rays, k_s), generator=g, device=dev) * 3
+    emb = torch.randn((n_rays, k_s, 512), generator=g, device=dev)
+    order = torch.argsort(z, dim=-1, stable=True)
+
+    def sorted_path():
+        return composite(torch.gather(z, 1, order), rays,
+                         torch.gather(rgbs, 1, order[..., None].expand_as(rgbs)),
+                         torch.gather(sig, 1, order),
+                         torch.gather(emb, 1, order[..., None].expand_as(emb)))
+
+    srt, uns = sorted_path(), composite_unsorted(z, rays, rgbs, sig, emb)
+    comp_gap = max(((a - b).abs().max() / b.abs().max()).item() for a, b in (
+        (torch.gather(uns.weights, 1, order), srt.weights), (uns.rgb, srt.rgb),
+        (uns.embed, srt.embed), (uns.depth, srt.depth)))
+    ops["composite_unsorted"] = dict(
+        gap_of_scale=comp_gap, tol=COMPOSITE_TOL,
+        device_ms=profiled_ms(torch, lambda: composite_unsorted(z, rays, rgbs, sig, emb), 10),
+        sorted_device_ms=profiled_ms(torch, sorted_path, 10))
+    emit("camera_ops", **ops, grid=list(FASTBWD["grid"]), samples=FASTBWD["samples"],
+         rays=n_rays, samples_per_ray=k_s, card=card)
+    for dname in ("float32", "bfloat16"):
+        o = ops[f"fastbwd_{dname}"]
+        if not (o["forward_equal"] and o["grad_gap_of_scale"] <= o["tol"]):
+            fail(f"camera_ops fastbwd {dname}: {o}")
+    if not comp_gap <= COMPOSITE_TOL:
+        fail(f"camera_ops composite_unsorted: {comp_gap} of the scale")
+
+    # -------------------------------------------------------- d. camera_tools
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = profile_policy.main(["--n-inner", "2", "--top", "10", "--out", tmp])
+    profile_s = time.perf_counter() - t
+    saved_dir, saved_lib = _build.BUILD_DIR, _build._LOADED.pop("corner_lerp", None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            where = enable_persistent_cache(os.path.join(tmp, "kernels"))
+            rows = torch.randn((4096, 8 * 64), generator=g, device=dev).to(torch.bfloat16)
+            w8 = torch.rand((8, 4096), generator=g, device=dev)
+            lerp_gap = (corner_lerp(rows, w8).float() - corner_lerp_plain(rows, w8).float()
+                        ).abs().max().item()
+            built = sorted(os.path.basename(p) for p in os.listdir(where))
+            cache_s = time.perf_counter() - t
+    finally:
+        _build.BUILD_DIR = saved_dir
+        if saved_lib is not None:
+            _build._LOADED["corner_lerp"] = saved_lib
+    emit("camera_tools", profile_policy_device_ms=summary["device_ms_per_forward"],
+         profile_policy_top_classes=summary["by_class"][:6],
+         profile_policy_top_ops=summary["top"][:5], profile_policy_s=profile_s,
+         cache_dir_built=built, cache_build_s=cache_s, corner_lerp_gap=lerp_gap,
+         phase_wall_s=time.perf_counter() - t_phase, phase_cpu_reference_s=cpu_s[0], card=card)
+    if not summary["device_ms_per_forward"] > 0 or not summary["by_class"]:
+        fail(f"camera_tools: profile_policy saw no device time ({summary})")
+    if not any(b.startswith("libcorner_lerp-") and b.endswith(".so") for b in built):
+        fail(f"camera_tools: the kernel did not build in the cache directory ({built})")
+    if not lerp_gap <= 2 ** -8 * rows.float().abs().max().item():
+        fail(f"camera_tools: corner_lerp from the cache directory is off by {lerp_gap}")
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "real_robot_nerf_actor_tpu_torch" / "csrc").is_dir():
@@ -3615,6 +4279,9 @@ def main():
 
     # ---------------------------------------------------------- 11. teacher
     teacher_phase(torch, np, dev, card)
+
+    # ----------------------------------------------------------- 12. camera
+    camera_phase(torch, np, dev, card, server_on, server_off)
 
     # ------------------------------------------------------ summary
     info = {

@@ -57,6 +57,16 @@ neither `msgpack` nor flax). The FeatureNeRF contrastive teacher's state
 `teacher_to_state_dict`, its optax adam state by `load_optax_state`; the
 pixelNeRF family's `ConvEncoder` and `ImplicitNet` map by
 `flax_to_state_dict`.
+
+The auxiliary models map by `flax_to_state_dict` as they are, their leaf
+rules unchanged (tests/test_torch_aux_models.py): the CNN heads
+(`conv{i}.Conv_0` HWIO -> OIHW, `film{i}.Dense_0`, `fc{i}`, `head`; the
+conv maps are flattened in NHWC order in the port too, so `fc0`'s kernel
+needs no row permutation), the VL modules (`LayerNorm_0`, `norm_lang`,
+`to_q` / `to_k` / `to_v` / `to_out`, the `gate` as it is; the
+transformer's unnamed `LayerNorm_{i}`, `Dense_{2i}`, `Dense_{2i+1}`) and
+`MultiLayer3DEncoder` (flax numbers the stride-1 cell of each level before
+its stride-2 cell, and the port's names follow).
 """
 from __future__ import annotations
 

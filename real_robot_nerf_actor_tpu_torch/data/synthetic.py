@@ -334,3 +334,53 @@ def make_camera_arc(n_views: int, center=(0.35, 0.2, 0.1), radius: float = 2.2,
                                  height], np.float32)
         poses.append(_look_at(eye, center))
     return np.stack(poses)
+
+
+# a RealSense D435 colour-aligned depth stream at 640 x 480 (fx = fy = 615 px)
+REALSENSE_INTRINSICS = np.array([[615.0, 0.0, 320.0], [0.0, 615.0, 240.0],
+                                 [0.0, 0.0, 1.0]])
+
+
+def camera_extrinsic(eye=(0.35, -0.25, 0.4), target=(0.35, 0.2, -0.18)) -> np.ndarray:
+    """Camera-to-world pose in the OpenCV convention depth_to_pointcloud
+    uses (x right, y down, z forward), looking from `eye` at `target`: by
+    default above the front edge of the table, tilted down at it, the table
+    0.5-1.0 m away."""
+    return _look_at(np.asarray(eye, np.float64), np.asarray(target, np.float64)) \
+        @ np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+
+
+def camera_frames(scene: SyntheticScene, intrinsics: np.ndarray, cam_to_world: np.ndarray,
+                  hw: Tuple[int, int] = (480, 640), n_frames: int = 8, seed: int = 0,
+                  noise: float = 1e-3, hole_frac: float = 0.02):
+    """A static camera's raw depth frames of the scene and its colour frame.
+
+    The scene's points are splatted as the teacher's depth is (the nearest
+    point a pixel, at the rounded projection); pixels no point lands on are
+    holes (0). Each frame adds seeded noise of RMS noise * z^2 (a stereo
+    camera's error grows with the square of the depth) and drops hole_frac
+    of the pixels at random. Returns depth (n_frames, H, W) float32 metres
+    (0 = invalid) and rgb (H, W, 3) float32 in [0, 1]."""
+    h, w = hw
+    w2c = np.linalg.inv(np.asarray(cam_to_world, np.float64))
+    p = scene.points.astype(np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
+    z = p[:, 2]
+    keep = z > 1e-3
+    p, z, cols = p[keep], z[keep], scene.colors[keep]
+    u = np.rint(intrinsics[0, 0] * p[:, 0] / z + intrinsics[0, 2]).astype(np.int64)
+    v = np.rint(intrinsics[1, 1] * p[:, 1] / z + intrinsics[1, 2]).astype(np.int64)
+    ok = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    u, v, z, cols = u[ok], v[ok], z[ok].astype(np.float32), cols[ok]
+    zbuf = np.full((h, w), np.inf, np.float32)
+    np.minimum.at(zbuf, (v, u), z)
+    rgb = np.zeros((h, w, 3), np.float32)
+    front = z == zbuf[v, u]
+    rgb[v[front], u[front]] = (cols[front] + 1.0) / 2.0
+    base = np.where(np.isfinite(zbuf), zbuf, 0.0).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    frames = np.empty((n_frames, h, w), np.float32)
+    for f in range(n_frames):
+        d = base + (rng.standard_normal((h, w)) * noise * base ** 2).astype(np.float32)
+        d[rng.uniform(size=(h, w)) < hole_frac] = 0.0
+        frames[f] = np.where(base > 0, d, 0.0)
+    return frames, np.clip(rgb, 0.0, 1.0)

@@ -192,12 +192,13 @@ class BatchNorm(nn.Module):
 
     forward(x, train=False) normalises with the running statistics.
     forward(x, train=True) normalises with the batch's, over every axis but
-    the last, computed in fp32 as flax computes them: mean = E[x] and the
-    biased variance max(0, E[x^2] - E[x]^2), the gradient flowing through
-    both; then y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and the
-    running statistics become m * running + (1 - m) * batch (flax's
-    momentum m; torch's is its complement, and `F.batch_norm` would update
-    with the unbiased variance).
+    the last, computed in fp32 (float64 for a float64 input) as flax
+    computes them: mean = E[x] and the biased variance max(0, E[x^2] -
+    E[x]^2), the gradient flowing through both; then y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, and the running statistics become
+    m * running + (1 - m) * batch (flax's momentum m; torch's is its
+    complement, and `F.batch_norm` would update with the unbiased
+    variance).
 
     `train_statistics_` makes the running statistics trainable leaves, as
     the JAX package's BC fine-tune differentiates and Adam-steps its
@@ -222,7 +223,7 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x.movedim(-1, 1), self.running_mean, self.running_var,
                              self.weight, self.bias, training=False, eps=self.eps)
             return y.movedim(1, -1)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
         mean = xf.mean(dim=dims)
         var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
@@ -456,6 +457,45 @@ class MultiLayer3DEncoderShallow(nn.Module):
         u = c2 + self.DeconvBn3D_1(u, c2.shape[1], train)
         u = c0 + self.DeconvBn3D_2(u, c0.shape[1], train)
         return self.Conv_0(u)
+
+
+class MultiLayer3DEncoder(nn.Module):
+    """Deep 4-level 3-D UNet voxel encoder: [32, 64, 128, 256] channels down
+    with stride-2 convs (100^3 -> 50 -> 25 -> 13), transposed convs up with
+    additive skips, 1x1x1 head. forward returns (out, voxel_list) with
+    voxel_list = [input, the V/4 skip sum, the V/2 skip sum]. The cells
+    carry flax's numbering: in `cell(down(x))` flax names the outer cell
+    first, so ConvBnReLU3D_{1,3,5} are the stride-1 cells and _{2,4,6} the
+    stride-2 ones."""
+
+    def __init__(self, in_channels: int, features: int = 64):
+        super().__init__()
+        ch = (32, 64, 128, 256)
+        cells = [(in_channels, ch[0], 1)]
+        for lo, hi in zip(ch[:-1], ch[1:]):
+            cells += [(hi, hi, 1), (lo, hi, 2)]
+        for i, (cin, cout, s) in enumerate(cells):
+            setattr(self, f"ConvBnReLU3D_{i}", ConvBnReLU3D(cin, cout, stride=s))
+        for i, (cin, cout) in enumerate([(ch[3], ch[2]), (ch[2], ch[1]),
+                                         (ch[1], ch[0])]):
+            setattr(self, f"DeconvBn3D_{i}", DeconvBn3D(cin, cout))
+        self.Conv_0 = Conv3d(ch[0], features, 1)
+
+    def forward(self, x, train: bool = False):
+        """train=True: BatchNorm on batch statistics, updating the running
+        ones in place (see BatchNorm)."""
+        cell = [getattr(self, f"ConvBnReLU3D_{i}") for i in range(7)]
+        voxel_list = [x]
+        c0 = cell[0](x, train)
+        c2 = cell[1](cell[2](c0, train), train)
+        c4 = cell[3](cell[4](c2, train), train)
+        u = cell[5](cell[6](c4, train), train)
+        u = c4 + self.DeconvBn3D_0(u, c4.shape[1], train)
+        voxel_list.append(u)
+        u = c2 + self.DeconvBn3D_1(u, c2.shape[1], train)
+        voxel_list.append(u)
+        u = c0 + self.DeconvBn3D_2(u, c0.shape[1], train)
+        return self.Conv_0(u), voxel_list
 
 
 class ContractFirstConv3D(nn.Module):

@@ -68,3 +68,20 @@ def compute_weights_unsorted(z_samp: torch.Tensor, sigmas: torch.Tensor,
     alphas = 1.0 - torch.exp(-x)
     transmittance = torch.exp(-torch.einsum("bij,bj->bi", before.to(x.dtype), x))
     return alphas * transmittance
+
+
+def composite_unsorted(z_samp: torch.Tensor, rays: torch.Tensor,
+                       rgbs: torch.Tensor, sigmas: torch.Tensor,
+                       embeds: torch.Tensor,
+                       white_bkgd: bool = False) -> CompositeOut:
+    """Composite samples given in ARBITRARY depth order: only the weights
+    depend on the order, and compute_weights_unsorted finds them without
+    sorting, so the wide rgb and embed rows are never reordered. Weights
+    come back in the input sample order."""
+    weights = compute_weights_unsorted(z_samp, sigmas, rays)
+    rgb = (weights[..., None] * rgbs).sum(dim=-2)
+    embed = (weights[..., None] * embeds).sum(dim=-2)
+    depth = (weights * z_samp).sum(dim=-1)
+    if white_bkgd:
+        rgb = rgb + (1.0 - weights.sum(dim=1)[..., None])
+    return CompositeOut(weights=weights, rgb=rgb, embed=embed, depth=depth)

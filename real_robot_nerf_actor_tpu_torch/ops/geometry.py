@@ -1,5 +1,6 @@
-"""Voxel index <-> metric point conversions (counterpart of the JAX
-package's `ops/geometry.py`)."""
+"""Voxel index <-> metric point conversions, euler angles -> quaternions and
+rigid transforms of points (counterpart of the JAX package's
+`ops/geometry.py`)."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +34,25 @@ def voxel_index_to_point(index: torch.Tensor, voxel_size: int,
     bb_max = coord_bounds[..., 3:6]
     res = (bb_max - bb_min) / voxel_size
     return bb_min + res * index.to(torch.float32) + res / 2.0
+
+
+def euler_to_quaternion(rpy: torch.Tensor) -> torch.Tensor:
+    """Euler (roll, pitch, yaw) radians (..., 3) -> quaternion (qx, qy, qz,
+    qw) (..., 4)."""
+    roll, pitch, yaw = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(roll / 2), torch.sin(roll / 2)
+    cp, sp = torch.cos(pitch / 2), torch.sin(pitch / 2)
+    cy, sy = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    qx = sr * cp * cy - cr * sp * sy
+    qy = cr * sp * cy + sr * cp * sy
+    qz = cr * cp * sy - sr * sp * cy
+    qw = cr * cp * cy + sr * sp * sy
+    return torch.stack([qx, qy, qz, qw], dim=-1)
+
+
+def transform_points(points: torch.Tensor, mat4: torch.Tensor) -> torch.Tensor:
+    """Apply a homogeneous 4x4 (or (..., 4, 4)) transform to (..., N, 3)
+    points: points @ R^T + t."""
+    rot = mat4[..., :3, :3]
+    t = mat4[..., :3, 3]
+    return points @ rot.transpose(-1, -2) + t[..., None, :]

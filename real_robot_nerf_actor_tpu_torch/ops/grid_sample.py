@@ -82,6 +82,19 @@ def expand_corners(grid: torch.Tensor) -> torch.Tensor:
                       for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)], dim=-1)
 
 
+def _fold_corners(g: torch.Tensor) -> torch.Tensor:
+    """The transpose of expand_corners, in fp32: (B, D+1, H+1, W+1, 8C) ->
+    (B, D, H, W, C), the eight corner blocks added in their order."""
+    b, dp, hp, wp, c8 = g.shape
+    c = c8 // 8
+    acc = torch.zeros((b, dp + 1, hp + 1, wp + 1, c), dtype=torch.float32,
+                      device=g.device)
+    for k in range(8):
+        dz, dy, dx = k >> 2, (k >> 1) & 1, k & 1
+        acc[:, dz:dz + dp, dy:dy + hp, dx:dx + wp] += g[..., k * c:(k + 1) * c]
+    return acc[:, 1:-1, 1:-1, 1:-1]
+
+
 class _ExpandCorners(torch.autograd.Function):
     """expand_corners of the grid cast to `dtype`. The backward adds the
     eight corner blocks of the gradient into one fp32 buffer: JAX expands
@@ -94,14 +107,7 @@ class _ExpandCorners(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        b, dp, hp, wp, c8 = g.shape
-        c = c8 // 8
-        acc = torch.zeros((b, dp + 1, hp + 1, wp + 1, c), dtype=torch.float32,
-                          device=g.device)
-        for k in range(8):
-            dz, dy, dx = k >> 2, (k >> 1) & 1, k & 1
-            acc[:, dz:dz + dp, dy:dy + hp, dx:dx + wp] += g[..., k * c:(k + 1) * c]
-        return acc[:, 1:-1, 1:-1, 1:-1].to(ctx.in_dtype), None
+        return _fold_corners(g).to(ctx.in_dtype), None
 
 
 def expand_corners_to(grid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -127,6 +133,46 @@ def corner_weights_and_rows(coords: torch.Tensor, d: int, h: int, w: int):
     flat = (((z0i.clamp(-1, d - 1) + 1) * (h + 1) + y0i.clamp(-1, h - 1) + 1)
             * (w + 1) + x0i.clamp(-1, w - 1) + 1)
     return w8, flat.long()
+
+
+class _FastBwdSample(torch.autograd.Function):
+    """grid_sample_3d whose backward reaches the grid through ONE scatter:
+    the per-sample rows w8 (x) g, (B, N, 8C) in fp32, go by one `index_add_`
+    into the corner-expanded (D+1)(H+1)(W+1) cell space, and the eight
+    corner blocks fold back (`_fold_corners`, the transpose of
+    expand_corners), cast to the grid's dtype once at the end."""
+
+    @staticmethod
+    def forward(ctx, grid, coords):
+        ctx.save_for_backward(coords)
+        ctx.grid_shape, ctx.grid_dtype = grid.shape, grid.dtype
+        return grid_sample_3d(grid, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        b, d, h, w, c = ctx.grid_shape
+        n = coords.shape[1]
+        cells = (d + 1) * (h + 1) * (w + 1)
+        w8, flat = corner_weights_and_rows(coords, d, h, w)   # (8, B*N), (B*N,)
+        rows = (w8.t()[:, :, None] * g.reshape(b * n, 1, c).float()).reshape(b * n, 8 * c)
+        flat = (flat.reshape(b, n) + torch.arange(b, device=flat.device)[:, None]
+                * cells).reshape(-1)
+        d_exp = torch.zeros((b * cells, 8 * c), dtype=torch.float32, device=g.device)
+        d_exp.index_add_(0, flat, rows)
+        d_grid = _fold_corners(d_exp.reshape(b, d + 1, h + 1, w + 1, 8 * c))
+        d_coords = torch.zeros_like(coords) if ctx.needs_input_grad[1] else None
+        return d_grid.to(ctx.grid_dtype), d_coords
+
+
+def grid_sample_3d_fastbwd(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """grid_sample_3d with a one-scatter backward for the grid gradient
+    (see _FastBwdSample). The coords get a zero gradient, as in the JAX
+    package: every caller detaches the sample coordinates; use
+    grid_sample_3d where d(coords) is needed. Opt-in: the JAX package
+    measured it as a net loss at its train step, and nothing on the port's
+    main path calls it."""
+    return _FastBwdSample.apply(grid, coords)
 
 
 def grid_sample_3d_fused(expanded: torch.Tensor, coords: torch.Tensor,

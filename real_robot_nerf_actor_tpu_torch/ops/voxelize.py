@@ -41,6 +41,20 @@ def _index_grid(voxel_size: int, device, dtype=torch.float32) -> torch.Tensor:
     return torch.stack([gx, gy, gz], dim=-1) / float(voxel_size)
 
 
+def pad_points(coords: torch.Tensor, features: torch.Tensor, max_num_coords: int):
+    """(B, N, 3) points and (B, N, F) features -> (B, M, 3), (B, M, F) and
+    valid (B, M), M = max_num_coords: the first M points, or all N padded
+    with invalid zeros (data/replay.pad_point_cloud's rule, on the device)."""
+    b, n = coords.shape[:2]
+    m = max_num_coords
+    valid = (torch.arange(m, device=coords.device) < n).expand(b, m)
+    if n >= m:
+        return coords[:, :m], features[:, :m], valid
+    return (torch.cat([coords, coords.new_zeros((b, m - n, coords.shape[2]))], dim=1),
+            torch.cat([features, features.new_zeros((b, m - n, features.shape[2]))], dim=1),
+            valid)
+
+
 def voxelize(coords: torch.Tensor, features: torch.Tensor,
              coord_bounds: torch.Tensor, spec: VoxelizerSpec,
              valid: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -7,6 +7,9 @@ decode and the voxel index -> pose conversion, returning one packed
 (B, 8) row [xyz, rot_deg, grip, coll] that crosses to the host once.
 `run_deployment` drives that step against a `RobotIO`;
 `run_deployment_scan` runs a recorded horizon as a loop over its steps.
+`CameraActor` is the reference's real-camera front end on that step: raw
+RealSense depth through the filter chain on the host, then camera-frame
+and world points, the crop to the bounds and the act step on the device.
 
 Entry points run on CUDA unless the caller passes device="cpu"; without a
 CUDA device they raise rather than fall back.
@@ -22,6 +25,8 @@ from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from real_robot_nerf_actor_tpu_torch.data.depth_filters import (
+    DepthFilterPipeline, depth_to_pointcloud)
 from real_robot_nerf_actor_tpu_torch.data.replay import (
     ReplayStep, RobotIO, pad_point_cloud)
 from real_robot_nerf_actor_tpu_torch.models.blocks import Conv3DBlock
@@ -29,7 +34,9 @@ from real_robot_nerf_actor_tpu_torch.models.perceiver import (
     PerceiverConfig, PerceiverIO)
 from real_robot_nerf_actor_tpu_torch.ops import (
     VoxelizerSpec, choose_highest_action, discretize_action, voxelize)
-from real_robot_nerf_actor_tpu_torch.ops.geometry import voxel_index_to_point
+from real_robot_nerf_actor_tpu_torch.ops.geometry import (
+    transform_points, voxel_index_to_point)
+from real_robot_nerf_actor_tpu_torch.ops.voxelize import pad_points
 
 
 @dataclasses.dataclass
@@ -101,6 +108,85 @@ class PolicyServer:
                            dev(valid, torch.bool), dev(proprio_xyz, torch.float32),
                            dev(proprio_rot, torch.float32),
                            dev(proprio_grip, torch.float32))[0].cpu().numpy()
+        return packed[:3], packed[3:6], int(packed[6]), int(packed[7])
+
+
+def camera_points(depth_m: np.ndarray, rgb: np.ndarray, intrinsics: np.ndarray,
+                  cam_to_world: torch.Tensor, bounds: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A filtered depth frame (H, W) and its colour frame (H, W, 3) -> the
+    world points of the valid pixels inside `bounds`, (N, 3) in pixel order,
+    and their colours in [-1, 1], on the device of `cam_to_world` (4 x 4):
+    depth_to_pointcloud, then transform_points."""
+    dev = cam_to_world.device
+    cam = depth_to_pointcloud(depth_m, intrinsics, device=dev).reshape(-1, 3)
+    world = transform_points(cam, cam_to_world)
+    rgb_t = torch.as_tensor(np.asarray(rgb)).to(dev)
+    if rgb_t.dtype == torch.uint8:
+        rgb_t = rgb_t.float() / 255.0
+    cols = (rgb_t.float().reshape(-1, 3) - 0.5) / 0.5
+    keep = ((cam[:, 2] > 0) & (world >= bounds[:3]).all(dim=-1)
+            & (world <= bounds[3:]).all(dim=-1))
+    return world[keep], cols[keep]
+
+
+class CameraActor:
+    """The reference's real-camera act path (read_real_data_kitchen.py:55-160,
+    then the act step) around a PolicyServer:
+
+      raw depth (H, W) in metres -> `DepthFilterPipeline` on the host
+      (disparity, spatial and temporal filters, the 1 m clip; the temporal
+      state carries from frame to frame) -> `depth_to_pointcloud` and
+      `transform_points` by the camera-to-world extrinsic on the server's
+      device -> the valid points inside coord_bounds, in pixel order, padded
+      or truncated to max_num_coords -> `PolicyServer.step`.
+
+    rgb is the colour frame aligned to the depth, (H, W, 3) uint8 or floats
+    in [0, 1], mapped to [-1, 1] as the replay loader maps PLY colours."""
+
+    def __init__(self, server: PolicyServer, intrinsics: np.ndarray,
+                 cam_to_world: np.ndarray,
+                 filters: Optional[DepthFilterPipeline] = None):
+        self.server = server
+        self.device = server.device
+        self.intrinsics = np.asarray(intrinsics, np.float64)
+        self.cam_to_world = torch.as_tensor(np.asarray(cam_to_world, np.float32),
+                                            device=self.device)
+        self.filters = filters if filters is not None else DepthFilterPipeline()
+        self.last_num_points = 0
+
+    def reset(self):
+        """Forget the temporal filter's history (a new episode)."""
+        self.filters.reset()
+
+    def points(self, depth_m: np.ndarray, rgb: np.ndarray
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A filtered depth frame and its colours -> the world points inside
+        the bounds, (N, 3), and their colours, on the device."""
+        return camera_points(depth_m, rgb, self.intrinsics, self.cam_to_world,
+                             self.server.bounds)
+
+    def step(self, depth_filtered: np.ndarray, rgb: np.ndarray, proprio_xyz,
+             proprio_rot, proprio_grip) -> torch.Tensor:
+        """The device part on a filtered frame: packed (1, 8) [xyz,
+        rot_deg, grip, coll] as PolicyServer.step returns it."""
+        pts, cols = self.points(depth_filtered, rgb)
+        self.last_num_points = int(pts.shape[0])
+        pts, cols, valid = pad_points(pts[None], cols[None],
+                                      self.server.voxelizer.max_num_coords)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(self.device)[None]
+
+        return self.server.step(pts, cols, valid, dev(proprio_xyz), dev(proprio_rot),
+                                dev(proprio_grip))
+
+    def act(self, depth_m: np.ndarray, rgb: np.ndarray, proprio_xyz: np.ndarray,
+            proprio_rot: np.ndarray, proprio_grip: float):
+        """One control step from a raw depth frame -> (xyz (3,), rotation
+        deg (3,), gripper_open, collision), as PolicyServer.act."""
+        packed = self.step(self.filters(depth_m), rgb, proprio_xyz, proprio_rot,
+                           proprio_grip)[0].cpu().numpy()
         return packed[:3], packed[3:6], int(packed[6]), int(packed[7])
 
 

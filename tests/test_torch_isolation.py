@@ -593,3 +593,145 @@ def test_chip_smoke_has_a_teacher_phase_and_the_field_modes():
     assert "teacher_phase(" in inspect.getsource(cs.main)
     assert "proposal_and_quantized_frames(" in inspect.getsource(cs.render_phase)
     assert "coarse_embed_fault=True" in inspect.getsource(cs.nerfact_phase)
+
+
+def test_camera_and_aux_modules_run_without_jax():
+    """In a process where jax, flax and the JAX package cannot be imported:
+    every module of slice 10 imports, the package exports reach the JAX
+    package's names, and the camera act path, an augmentation, a CNN head,
+    a VL block, the deep UNet and a profiled step run on the CPU."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np, torch\n"
+        "from real_robot_nerf_actor_tpu_torch import compat\n"
+        "from real_robot_nerf_actor_tpu_torch.data import augment, depth_filters\n"
+        "from real_robot_nerf_actor_tpu_torch.data.synthetic import (camera_extrinsic,\n"
+        "    camera_frames, make_synthetic_scene)\n"
+        "from real_robot_nerf_actor_tpu_torch.models import MultiLayer3DEncoder, PerceiverConfig\n"
+        "from real_robot_nerf_actor_tpu_torch.models import PerceiverIO\n"
+        "from real_robot_nerf_actor_tpu_torch.models.blocks import init_weights\n"
+        "from real_robot_nerf_actor_tpu_torch.models.cnn_policies import CNNLangAndFcsNet\n"
+        "from real_robot_nerf_actor_tpu_torch.models.vl_attention import Visual3DLangTransformer\n"
+        "from real_robot_nerf_actor_tpu_torch.ops import VoxelizerSpec, grid_sample_3d\n"
+        "from real_robot_nerf_actor_tpu_torch.ops.grid_sample import grid_sample_3d_fastbwd\n"
+        "from real_robot_nerf_actor_tpu_torch.tools import profile_policy\n"
+        "from real_robot_nerf_actor_tpu_torch.train.serve import CameraActor, PolicyServer, ServeConfig\n"
+        "from real_robot_nerf_actor_tpu_torch.utils import StepTimer, named_scope\n"
+        "from real_robot_nerf_actor_tpu_torch.utils.cache import enable_persistent_cache\n"
+        "K = np.array([[61.5, 0, 32], [0, 61.5, 24], [0, 0, 1]])\n"
+        "sc = make_synthetic_scene(seed=0, n_points=20000)\n"
+        "depth, rgb = camera_frames(sc, K, camera_extrinsic(), (48, 64), n_frames=2)\n"
+        "cfg = PerceiverConfig(depth=1, voxel_size=10, num_latents=8, latent_dim=16,\n"
+        "    lang_emb_dim=8, lang_max_seq_len=2)\n"
+        "net = PerceiverIO.initialized(cfg, torch.Generator().manual_seed(0))\n"
+        "srv = PolicyServer(ServeConfig(), cfg, VoxelizerSpec(10, 3, 500), net.state_dict(),\n"
+        "    np.zeros((2, 8), np.float32), device='cpu')\n"
+        "actor = CameraActor(srv, K, camera_extrinsic())\n"
+        "acts = [actor.act(d, rgb, np.zeros(3), np.zeros(3), 1.0) for d in depth]\n"
+        "assert all(np.isfinite(a[0]).all() for a in acts) and actor.last_num_points > 0\n"
+        "x = torch.rand(2, 8, 8, 3)\n"
+        "assert augment.random_shift(x, 2, generator=torch.Generator()).shape == x.shape\n"
+        "with torch.no_grad(), StepTimer() as t, named_scope('aux'):\n"
+        "    h = init_weights(CNNLangAndFcsNet(3, (8, 8), 4, 6))(x, torch.zeros(2, 4), torch.zeros(2, 6))\n"
+        "    v = init_weights(Visual3DLangTransformer(8, 6, n_heads=2, d_head=4))(\n"
+        "        torch.rand(1, 5, 8), torch.rand(1, 3, 6))\n"
+        "    u, vl = init_weights(MultiLayer3DEncoder(4, 8))(torch.rand(1, 8, 8, 8, 4))\n"
+        "assert h.shape == (2, 8) and v.shape == (1, 5, 8) and len(vl) == 3\n"
+        "assert u.shape == (1, 8, 8, 8, 8) and t.seconds > 0\n"
+        "g = torch.rand(1, 4, 4, 4, 2, requires_grad=True)\n"
+        "grid_sample_3d_fastbwd(g, torch.rand(1, 9, 3) * 2 - 1).sum().backward()\n"
+        "assert g.grad is not None and profile_policy.op_class('sm90_xmma_gemm') == 'gemm'\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_camera_entry_points_refuse_missing_cuda(monkeypatch):
+    from real_robot_nerf_actor_tpu_torch import compat
+    from real_robot_nerf_actor_tpu_torch.data.depth_filters import depth_to_pointcloud
+    from real_robot_nerf_actor_tpu_torch.tools import profile_policy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: compat.VoxelGrid((0, 0, 0, 1, 1, 1), 10),
+                 lambda: depth_to_pointcloud(np.ones((4, 5), np.float32), np.eye(3), "cuda"),
+                 lambda: compat.gen_rays(np.eye(4)[None], 4, 3, 2.0, 0.5, 2.0),
+                 lambda: compat.choose_highest_action(np.zeros((1, 1, 2, 2, 2)),
+                                                      np.zeros((1, 3 * 72 + 2)),
+                                                      np.zeros((1, 2))),
+                 lambda: profile_policy.main(["--n-inner", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_package_exports_reach_the_jax_packages_names():
+    """Each name the JAX package's sub-package __init__s export (the import
+    lists of their __init__ files, read without importing JAX) imports from
+    the port's counterpart."""
+    import importlib
+    for sub in ("ops", "utils", "data", "models"):
+        src = REPO / "real_robot_nerf_actor_tpu" / sub / "__init__.py"
+        names = [a.name for node in ast.walk(ast.parse(src.read_text()))
+                 if isinstance(node, ast.ImportFrom) for a in node.names]
+        assert names, sub
+        port = importlib.import_module(f"real_robot_nerf_actor_tpu_torch.{sub}")
+        for name in names:
+            assert hasattr(port, name), f"{sub}.{name}"
+            assert name in port.__all__, f"{sub}.{name} not in __all__"
+
+
+def test_chip_smoke_has_a_camera_phase():
+    """chip_smoke.py's phase 12 drives the camera act path at full width
+    (480 x 640 frames, serve.yaml's policy with the kernels on) and the
+    slice's models, ops and tools, with its planted faults."""
+    import importlib.util
+    import inspect
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    src = inspect.getsource(cs.camera_phase)
+    for needle in ("CameraActor(", "DepthFilterPipeline(", "depth_to_pointcloud(",
+                   "transform_points(", "euler_to_quaternion(", "compat.VoxelGrid(",
+                   "compat.choose_highest_action(", "extrinsic_transposed=",
+                   "CNNLangAndFcsNet(", "CNNAndFcsNet(", "SiameseNet(", "SpatialSoftmax2D(",
+                   "Visual3DLangTransformer(", "LanguageInformedVisualAttention(",
+                   "MultiLayer3DEncoder(", "planted_symmetric_padding", "planted_exact_gelu",
+                   "planted_tf32", "fp32_check(", "VOXEL_DIFF",
+                   "random_shift(", "color_jitter(", "random_grayscale(",
+                   "grid_sample_3d_fastbwd(", "composite_unsorted(", "profile_policy.main(",
+                   "enable_persistent_cache("):
+        assert needle in src, needle
+    assert "camera_phase(" in inspect.getsource(cs.main)
+    assert cs.CAMERA == dict(hw=(480, 640), frames=8, n_points=2000000)
+    assert cs.CAMERA_MODELS["batch"] == 64 and cs.CAMERA_MODELS["hw"] == (128, 128)
+    assert cs.CAMERA_MODELS["lang_dim"] == 512
+    assert cs.CAMERA_MODELS["vl_tokens"] == (8000, 128) and cs.CAMERA_MODELS["lang_tokens"] == 77
+    assert cs.FASTBWD == dict(grid=(1, 100, 100, 100, 64), samples=49152)
+    assert cs.COMPOSITE == dict(rays=512, samples=96)
+
+
+def test_profile_policy_runs_serve_yaml():
+    """tools/profile_policy.py's policy is configs/serve.yaml's (the card
+    has no PyYAML), and its trace reader sums the device lanes by class."""
+    import json
+    import yaml
+    from real_robot_nerf_actor_tpu_torch.tools import profile_policy
+    with open(REPO / "configs" / "serve.yaml") as f:
+        assert yaml.safe_load(f)["peract"]["model"] == profile_policy.SERVE_POLICY
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "flash_attention_wgmma_kernel", "dur": 200},
+        {"ph": "X", "cat": "kernel", "name": "sm90_xmma_gemm_bf16", "dur": 1000},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "dur": 50},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 5000}]}
+    import tempfile
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump(trace, f)
+    total, by_class, by_name = profile_policy.aggregate_trace(f.name)
+    assert total == 1.25 and by_class == {"flash_attention": 0.2, "gemm": 1.0, "copy": 0.05}
+    assert set(by_name) == {"flash_attention_wgmma_kernel", "sm90_xmma_gemm_bf16", "Memcpy HtoD"}
