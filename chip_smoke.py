@@ -138,6 +138,22 @@ Phases, each reported on its own line:
      CPU (two planted faults: symmetric padding, exact GELU); the one-scatter
      grid backward and unsorted compositing at the joint step's shapes;
      tools/profile_policy.py and the kernel build cache.
+ 13. parallel: configs/nerfact.yaml's joint step in setting b at full width
+     over a global batch of two on parallel/ (see parallel_phase): a, the
+     wrapped step at world size 1 over NCCL, equal to the bare step, with
+     its cost; b, dp 2 and c, tp 2, two ranks on this card over gloo, held
+     to a's step by phase 7's gradient rule widened by the CPU's own
+     reordering; d, serve.yaml's policy as a tp 2 forward on the flash
+     kernel; planted faults (BatchNorm statistics left local, k|v cut
+     contiguously, a bias added on both ranks) must fail the legs they
+     concern. The two-rank times measure gloo's host staging, not scaling.
+ 14. checkpoint: the tools that read a trained checkpoint (see
+     checkpoint_phase): a kitchen written at full width, configs/nerfact.yaml
+     trained on it for CKPT_STEPS steps in setting b, then served through
+     train/serve.py --ckpt-dir (logits equal to the trained module's), every
+     serving variant of tools/eval_quality.py (each kernel variant's frame
+     against its plain field's), tools/analyze_bc.py and
+     tools/extract_nerf_feat.py.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -148,6 +164,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -355,6 +372,62 @@ FASTBWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -5}
 # unsorted vs sorted compositing, of each output's scale (a masked matmul
 # against a cumsum)
 COMPOSITE_TOL = 1e-4
+
+
+# the parallel phase: configs/nerfact.yaml's joint step in setting b (conv3d_k3
+# and corner_lerp with their VJPs) over a global batch of two: the synthetic
+# scenes of seeds 0 and 1, so that the two samples' BatchNorm moments differ;
+# every bias (and the field's zero-initialised block weights) redrawn at
+# PARALLEL_BIAS_STD, so that a bias added on every rank shows. The tp = 2
+# forward: serve.yaml's policy with the kernel knobs (phase 3's), its biases at
+# POLICY_BIAS_STD, on phase 3's first voxel grid
+PARALLEL_BIAS_STD = 0.1
+POLICY_BIAS_STD = 1.0
+PARALLEL_TIMED = 3
+# the fp32 legs (b32, c32): b and c in fp32 under an optimizer whose update
+# the clip's global norm reaches: grad_clip 1e-10 puts every clipped entry
+# c*g below 1% of Adam's eps (1e-8), so that the first update is lr*c*g/eps,
+# linear in the clipped gradient (no entry near zero amplifies a rounding
+# gap, as Adam's sign-like regime would), and lr 1 makes it span many ulps
+# of its weight. Held against the fp32 one-rank step: the gradients, the
+# weights after the step (beyond one ulp of the stored weight, of the
+# tensor's largest update), Adam's first moments (the clipped gradient) and
+# the loss within FP32_K times the largest gap that the CPU's own fp32
+# reordering of the two-rank sums moves the same leg at the dryrun's tiny
+# width (4x, as phases 10 and 12 widen by the CPU's own gap), plus ULP_K
+# times the tensor's response to a one-ulp move of every weight in the
+# one-rank step (phase 10's rule; read from the reference, never from a
+# sharded leg). The tiny width has no sum of 10^6 voxels: at full width the
+# dp 2 leg (every conv at batch 1, each wgrad summed over a rank's voxels)
+# read 3.4% of patchify's weight gradients beyond the CPU's bound alone on an
+# H100, where tp 2 (the UNet unsplit) stayed within 0.35 of it. A tensor of
+# SMALL_LEAF entries or more is held by the share of its entries beyond its
+# bound, at most GRAD_SHARE (phase 12's rule: the policy's amax over 8000
+# tokens and 10^6 voxels has near ties that rounding flips, moving a row of
+# pos_encoding's gradient: 0.0188 of its scale on an H100); the statistics
+# within BN_TOL plus the CPU's gap
+PARALLEL32_OPTIM = dict(lr=1.0, grad_clip=1e-10)
+FP32_K = 4
+PARALLEL_DEADLINE_S = 600
+# the tp 2 forward's latents entering the decoder against one rank's: the RMS
+# of the gap within LATENT_TOL of the latents' RMS (two bf16 ulps, phase 7's
+# floor). The row-parallel partial products are fp32 and round once after
+# their sum, as one rank's GEMM rounds once, so the two differ by the order of
+# fp32 sums (a bf16 rounding that flips here and there), while a wrong cut
+# moves every latent; the logits after the spatial softmax at T = 0.01 hide
+# that difference within ACT_TOL (an H100 read 0.099 of the scale for a bias
+# added on both ranks, ACT_TOL 0.1)
+LATENT_TOL = 2 ** -7
+# BatchNorm running statistics of a two-rank step against the one-rank step,
+# of their scale: fp32 sums over 10^6 voxels a channel in two halves
+BN_TOL = 1e-4
+# the checkpoint phase: a kitchen of CKPT_DEMOS demos x CKPT_KEYFRAMES keyframes
+# at configs/nerfact.yaml's widths (128 x 128 views, 512-dim teacher embeds, the
+# writer's 60000 points), CKPT_STEPS steps of the file in setting b, then the
+# tools on the checkpoint
+CKPT_DEMOS = 2
+CKPT_KEYFRAMES = 3
+CKPT_STEPS = 4
 
 
 def fail(msg):
@@ -3885,6 +3958,959 @@ def camera_phase(torch, np, dev, card, server_on, server_off):
         fail(f"camera_tools: corner_lerp from the cache directory is off by {lerp_gap}")
 
 
+def setting_b(fp32=False):
+    """configs/nerfact.yaml in setting b: conv_backend "pallas", fused_gather
+    true (with FUSED_LERP_BACKEND "pallas" set by the caller); in fp32 with
+    fp32."""
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict
+
+    base = from_dict(NerfActConfig, NERFACT)
+    model = dataclasses.replace(base.peract.model, conv_backend="pallas")
+    field = base.renderer.field
+    if fp32:
+        model = dataclasses.replace(model, compute_dtype="float32")
+        field = dataclasses.replace(field, compute_dtype="float32")
+    return dataclasses.replace(
+        base, peract=dataclasses.replace(base.peract, model=model),
+        renderer=dataclasses.replace(base.renderer, fused_gather=True, field=field))
+
+
+def with_parallel32_optim(cfg):
+    """`cfg` (a NerfActConfig) with the fp32 legs' optimizer."""
+    from real_robot_nerf_actor_tpu_torch.train.trainer import OptimConfig
+
+    train = dataclasses.replace(cfg.peract.train, optim=OptimConfig(**PARALLEL32_OPTIM))
+    return dataclasses.replace(cfg, peract=dataclasses.replace(cfg.peract, train=train))
+
+
+def noisy_weights(torch, sd, std, seed):
+    """`sd` with every bias (1-D leaf but BatchNorm statistics) moved by
+    N(0, std^2) and every ResnetFC block's zero-initialised Dense_1 weight
+    redrawn at fan_in^-1/2, from a seeded CPU generator."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in sd.items():
+        v = v.detach().cpu()
+        if v.dim() == 1 and v.is_floating_point() and "running" not in k:
+            v = v + std * torch.randn(v.shape, generator=g)
+        elif "ResnetBlockFC" in k and k.endswith("Dense_1.weight"):
+            v = torch.randn(v.shape, generator=g) * v.shape[1] ** -0.5
+        out[k] = v.clone()
+    return out
+
+
+def two_scene_batch(torch, tr):
+    """The global batch of the parallel legs: synthetic_data's sample of the
+    scene of seed 0 and of seed 1, stacked."""
+    a, b = (next(tr.synthetic_data(batch_size=1, seed=s)) for s in (0, 1))
+    return {k: torch.cat([a[k], b[k]]) for k in a}
+
+
+def cpu32(t):
+    """A copy of `t` in fp32 on the CPU (never an alias of a live tensor)."""
+    import torch
+    return t.detach().to("cpu", dtype=torch.float32, copy=True)
+
+
+def step_record(torch, module, optimizer, metrics, sd=None, named=None, moments=None):
+    """metrics, gradients and buffers (CPU, fp32) after a step; with `sd`
+    (the weights before it) also the weights after it, each tensor's largest
+    update and Adam's first moments, by name. `named` and `moments` give the
+    whole parameters and moments where the module holds shards."""
+    out = dict(metrics={k: v.item() for k, v in metrics.items()},
+               buffers={k: cpu32(v) for k, v in module.named_buffers()})
+    if sd is not None:
+        named = named or {n: p.detach() for n, p in module.named_parameters()}
+        out["params"] = {k: cpu32(v) for k, v in named.items()}
+        out["update_scale"] = {k: (v.double() - sd[k].double()).abs().max().item()
+                               for k, v in out["params"].items()}
+        if moments is None:
+            st = optimizer.adamw.state
+            moments = {n: st[p]["exp_avg"] for n, p in zip(optimizer.names, optimizer.params)
+                       if p in st}
+        out["moments"] = {k: cpu32(v) for k, v in moments.items()}
+    return out
+
+
+def joint_leg(torch, tr, sd, batch, draws, mesh, tensor_parallel, timed=0, update=False,
+              after=None):
+    """One checked step of tr's joint step wrapped for `mesh` from weights
+    `sd` (then `timed` more): metrics, whole gradients and buffers (CPU,
+    fp32), with `update` the whole updates and Adam moments (step_record),
+    what after(state, mesh) returns, kernel launches of the checked step,
+    its host seconds, the timed steps' host ms, peak memory."""
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
+    from real_robot_nerf_actor_tpu_torch.parallel.mesh import gather_tensors
+    from real_robot_nerf_actor_tpu_torch.parallel.train_dp import (
+        _whole_optimizer_state, make_data_parallel_step, whole_grads)
+
+    cuda = tr.device.type == "cuda"
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state.module.load_state_dict(sd)
+    step, place_state, place_batch = make_data_parallel_step(
+        tr.train_step, mesh, state, batch, tensor_parallel=tensor_parallel)
+    state = place_state(state)
+    local = place_batch(batch)
+    counters = (("conv3d_k3", conv3d_k3, "wgmma_launches"),
+                ("conv3d_k3_vjp", conv3d_k3, "vjp_calls"),
+                ("corner_lerp", corner_lerp, "cuda_launches"),
+                ("corner_lerp_vjp", corner_lerp, "vjp_calls"))
+    for _, obj, attr in counters:
+        setattr(obj, attr, 0)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state, m = step(state, local, None, **draws)
+    if cuda:
+        torch.cuda.synchronize()
+    named = moments = None
+    if update:
+        named = gather_tensors(mesh, {n: p.detach() for n, p in state.module.named_parameters()},
+                               step.placements)
+        opt = state.optimizer
+        moments = {opt.names[i]: st["exp_avg"] for i, st in _whole_optimizer_state(
+            mesh, opt, step.placements)["adamw"]["state"].items()}
+    out = step_record(torch, state.module, state.optimizer, m, sd if update else None,
+                      named, moments)
+    out.update(step_s=time.perf_counter() - t,
+               launches={k: getattr(obj, attr) for k, obj, attr in counters},
+               grads={k: cpu32(v) for k, v in
+                      whole_grads(mesh, state.module, step.placements).items()},
+               sharded=len(step.placements))
+    if after is not None:
+        out.update(after(state, mesh))
+    times = []
+    for _ in range(timed):
+        t = time.perf_counter()
+        step(state, local, None, **draws)
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    out["timed_ms"] = times
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """A fault the parallel checks must see: k|v cut contiguously, a
+    row-parallel bias added on every rank, BatchNorm statistics left local,
+    the clip's norm over this rank's shards only, the non-finite flag left
+    local."""
+    import torch
+    import torch.nn.functional as F
+
+    from real_robot_nerf_actor_tpu_torch.convert import Placement
+    from real_robot_nerf_actor_tpu_torch.models import blocks
+    from real_robot_nerf_actor_tpu_torch.parallel import mesh as pmesh
+    from real_robot_nerf_actor_tpu_torch.parallel import train_dp
+    from real_robot_nerf_actor_tpu_torch.parallel.constraints import replicated
+
+    undo = []
+
+    def patch(obj, name, value):
+        undo.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    if fault == "kv_contiguous":
+        plan = dict(pmesh._PLAN["attention"], **{"to_kv.weight": Placement("column")})
+        patch(pmesh, "_PLAN", dict(pmesh._PLAN, attention=plan))
+    elif fault == "bias_every_rank":
+        def bias_every_rank(dense, x):
+            dt = blocks._dtype_for(x, dense.weight, dense.dtype)
+            b = None if dense.bias is None else dense.bias.to(dt)
+            return replicated(F.linear(x.to(dt), dense.weight.to(dt), b))
+        patch(pmesh.RowParallelDense, "forward", bias_every_rank)
+    elif fault == "bn_local":
+        patch(train_dp.DataParallelBatchNorm, "batch_moments", blocks.BatchNorm.batch_moments)
+    elif fault == "clip_local":
+        patch(train_dp.GradSync, "global_norm",
+              lambda self, norms: torch.linalg.vector_norm(norms))
+    elif fault == "finite_local":
+        patch(train_dp.GradSync, "all_finite", lambda self, finite: finite)
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        for obj, name, value in reversed(undo):
+            setattr(obj, name, value)
+
+
+def nonfinite_check(state, mesh):
+    """GradSync's non-finite flag on the card: rank 1's first gradient made
+    NaN, then one step of a fresh unclipped optimizer over this rank's
+    shards (with the flag reduced over every rank, then with it planted
+    local); whether the update ran and moved the weights, which are put
+    back after. The flag reduced, no rank may step; left local, rank 0
+    steps while rank 1 skips (no collective follows the flag without a
+    clip, so the ranks do not wait on each other)."""
+    import torch
+
+    from real_robot_nerf_actor_tpu_torch.train.trainer import Optimizer
+
+    out = {}
+    for fault in (None, "finite_local"):
+        opt = Optimizer(dataclasses.replace(state.optimizer.cfg, grad_clip=0.0),
+                        state.module.named_parameters())
+        opt.sync = state.optimizer.sync
+        before = [q.detach().clone() for q in opt.params]
+        p0, g0 = opt.params[0], opt.params[0].grad
+        if mesh.rank == 1:
+            p0.grad = torch.zeros_like(p0) if g0 is None else g0.clone()
+            p0.grad.view(-1)[0] = float("nan")
+        with planted(fault):
+            stepped = opt.step()
+        p0.grad = g0
+        moved = any(not torch.equal(a, q) for a, q in zip(before, opt.params))
+        with torch.no_grad():
+            for a, q in zip(before, opt.params):
+                q.copy_(a)
+        out[str(fault)] = dict(stepped=bool(stepped), moved=moved)
+    return {"nonfinite": out}
+
+
+def policy_forward(torch, net, vox, proprio, lang):
+    """(q_trans, q_rot_grip, q_collision) in fp32 on the CPU, the decoded
+    (coords, rot_grip, collision), and the latents entering the decoder's
+    cross-attention, of one forward."""
+    from real_robot_nerf_actor_tpu_torch.ops import choose_highest_action
+
+    seen = {}
+    hook = net.decoder_cross_attn.register_forward_hook(
+        lambda mod, args, out: seen.update(latents=cpu32(args[1])))
+    try:
+        with torch.inference_mode():
+            out = net(vox, proprio, lang)
+            dec = choose_highest_action(out[0], out[1], out[2])
+    finally:
+        hook.remove()
+    return [o.float().cpu() for o in out[:3]], [d.cpu() for d in dec], seen["latents"]
+
+
+def tiny_slack_inputs(torch, tr):
+    """The CPU reorder check's weights, batch and draws at the dryrun's tiny
+    width: seed 0 with the parallel legs' bias noise, the scenes of
+    seeds 0 and 1 cut to max_num_coords, draws from a generator of seed 1."""
+    from real_robot_nerf_actor_tpu_torch.parallel.train_dp import global_draws
+
+    sd = noisy_weights(torch, tr.init_state(torch.Generator().manual_seed(0)).module.state_dict(),
+                       PARALLEL_BIAS_STD, 3)
+    ncap = tr.cfg.voxelizer.max_num_coords
+    batch = {k: v[:, :ncap] if k in ("points", "colors", "valid") else v
+             for k, v in two_scene_batch(torch, tr).items()}
+    return sd, batch, global_draws(tr, 2, torch.Generator().manual_seed(1))
+
+
+def parallel_rank(rank, world, port, in_path, out_dir):
+    """A rank of phase 13's two-rank legs, on card 0 over gloo: b (dp 2) and
+    c (tp 2) of the joint step with their planted faults, the same in fp32
+    (b32, c32; c32 with the clip fault and the non-finite flag), d (the tp 2
+    policy forward) with its faults, then the CPU's reorder check at the
+    dryrun's tiny width (bf16 and fp32). Leaves rank{rank}.pt in out_dir."""
+    import torch
+
+    from real_robot_nerf_actor_tpu_torch.models import PerceiverIO
+    from real_robot_nerf_actor_tpu_torch.models.blocks import Conv3DBlock
+    from real_robot_nerf_actor_tpu_torch.ops import grid_sample
+    from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import flash_attention
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import spatial_stats_3d
+    from real_robot_nerf_actor_tpu_torch.parallel import (
+        MeshSpec, make_mesh, shard_module_, shard_params_rule, tensor_parallel)
+    from real_robot_nerf_actor_tpu_torch.parallel.dryrun import gate_config
+    from real_robot_nerf_actor_tpu_torch.parallel.mesh import init_rank
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(in_path, weights_only=False)
+    dev = torch.device(inp["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    init_rank(rank, world, port, "gloo", timeout_s=PARALLEL_DEADLINE_S)
+    grid_sample.FUSED_LERP_BACKEND = "pallas"
+    res = {}
+    meshes = {"b": make_mesh(MeshSpec(data=2, model=1)), "c": make_mesh(MeshSpec(data=1, model=2))}
+    tr = NerfActTrainer(setting_b(), device=dev)
+    batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+    draws = {"draws": inp["draws"]["draws"].to(dev), "ray_idx": inp["draws"]["ray_idx"],
+             "render_draws": inp["draws"]["render_draws"]}
+    for leg, faults in (("b", (None, "bn_local")),
+                        ("c", (None, "kv_contiguous", "bias_every_rank"))):
+        for fault in faults:
+            with planted(fault), deterministic_algorithms(torch):
+                r = joint_leg(torch, tr, inp["sd"], batch, draws, meshes[leg], leg == "c",
+                              timed=PARALLEL_TIMED if fault is None else 0)
+            if rank != 0:
+                r = {k: v for k, v in r.items() if k not in ("grads", "buffers")}
+            res[f"{leg}/{fault}"] = r
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = NerfActTrainer(with_parallel32_optim(setting_b(fp32=True)), device=dev)
+    for leg, faults in (("b32", (None,)), ("c32", (None, "clip_local"))):
+        for fault in faults:
+            check = nonfinite_check if leg == "c32" and fault is None else None
+            with planted(fault), deterministic_algorithms(torch):
+                r = joint_leg(torch, tr, inp["sd"], batch, draws, meshes[leg[0]], leg == "c32",
+                              update=True, after=check)
+            if rank != 0:
+                r = {k: v for k, v in r.items()
+                     if k not in ("grads", "buffers", "params", "moments")}
+            res[f"{leg}/{fault}"] = r
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d: serve.yaml's policy, tp 2 over the heads and FF hidden, flash on the
+    # local heads; the one-rank forward first (rank 0)
+    vox, proprio, lang = (inp["policy_in"][k].to(dev) for k in ("vox", "proprio", "lang"))
+
+    def policy():
+        net = PerceiverIO(inp["policy_cfg"])
+        net.load_state_dict(inp["policy_sd"])
+        net.to(dev).eval()
+        for m in net.modules():
+            if isinstance(m, Conv3DBlock):
+                m.cast_kernel_()
+        return net
+
+    if rank == 0:
+        res["d/one_rank"] = policy_forward(torch, policy(), vox, proprio, lang)
+    for fault in (None, "kv_contiguous", "bias_every_rank"):
+        with planted(fault):
+            net = policy()
+            shard_module_(meshes["c"], net, shard_params_rule(meshes["c"], net))
+            for obj, attr in ((flash_attention, "wgmma_launches"),
+                              (spatial_stats_3d, "cuda_launches"),
+                              (conv3d_k3, "wgmma_launches")):
+                setattr(obj, attr, 0)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with tensor_parallel(meshes["c"]):
+                out = policy_forward(torch, net, vox, proprio, lang)
+            res[f"d/{fault}"] = dict(
+                out=out, s=time.perf_counter() - t,
+                peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches={"flash_attention": flash_attention.wgmma_launches,
+                          "spatial_stats_3d": spatial_stats_3d.cuda_launches,
+                          "conv3d_k3": conv3d_k3.wgmma_launches})
+            del net
+    torch.cuda.empty_cache()
+
+    # the CPU's own reordering of the two-rank sums: the dryrun's tiny config
+    # in bf16, as the card's legs compute, each leg's gradients and
+    # statistics against the one-rank step
+    tiny = gate_config("tiny")
+    tiny = dataclasses.replace(
+        tiny, peract=dataclasses.replace(tiny.peract, model=dataclasses.replace(
+            tiny.peract.model, compute_dtype="bfloat16")),
+        renderer=dataclasses.replace(tiny.renderer, field=dataclasses.replace(
+            tiny.renderer.field, compute_dtype="bfloat16")))
+    for suffix, cfg in (("", tiny), ("32", with_parallel32_optim(gate_config("tiny")))):
+        cpu_tr = NerfActTrainer(cfg, device="cpu")
+        sd, batch, draws = tiny_slack_inputs(torch, cpu_tr)
+        if rank == 0:
+            st = cpu_tr.init_state(torch.Generator().manual_seed(0))
+            st.module.load_state_dict(sd)
+            st, m1 = cpu_tr.train_step(st, batch, None, **draws)
+            res[f"cpu/one_rank{suffix}"] = dict(
+                step_record(torch, st.module, st.optimizer, m1, sd if suffix else None),
+                grads={n: cpu32(p.grad) for n, p in st.module.named_parameters()})
+        for leg in ("b", "c"):
+            res[f"cpu/{leg}{suffix}"] = joint_leg(torch, cpu_tr, sd, batch, draws, meshes[leg],
+                                                  leg == "c", update=bool(suffix))
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def entry_gaps(got, want, kind, skip=()):
+    """{name: each entry's gap of `kind` ("grads", "moments" or "params"),
+    of its tensor's scale}. "params" are the weights after the step
+    (step_record): the gap beyond one ulp of the stored weight (two updates
+    a hair apart may round to neighbouring fp32 weights), of the tensor's
+    largest update."""
+    import torch
+
+    out = {}
+    for k, w in want[kind].items():
+        if k in skip:
+            continue
+        gap = (got[kind][k] - w).abs()
+        if kind == "params":
+            gap = (gap - (torch.nextafter(w.abs(), torch.tensor(math.inf)) - w.abs())).clamp_min(0)
+            out[k] = gap / max(want["update_scale"][k], 1e-30)
+        else:
+            out[k] = gap / w.abs().max().clamp_min(1e-30)
+    return out
+
+
+def rel_gaps(got, want, skip=()):
+    """max |got - want| / max |want| of each tensor of `want` (a 1e-30 floor)."""
+    return {k: ((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            for k, w in want.items() if k not in skip}
+
+
+def parallel_phase(torch, np, dev, card, policy, vox, proprio, lang):
+    """Phase 13: configs/nerfact.yaml's joint step in setting b at full
+    width over a global batch of two, on parallel/ (see the module
+    constants for the inputs).
+
+      a. make_data_parallel_step at world size 1 over NCCL against the bare
+         step: loss, every gradient and the BatchNorm statistics equal (on
+         deterministic algorithms); the wrapper's host p50 and device ms a
+         step beside the bare step's (in turns); the same step in fp32 for
+         the tolerance.
+      b. dp 2 x tp 1: two ranks on cuda:0 over gloo, one sample each, sample
+         0's d0 and view broadcast and 256 of the 512 rays a rank;
+      c. dp 1 x tp 2: the policy's self-attention heads and GEGLU hidden and
+         the field's block hidden cut over two ranks;
+         b and c against a's one-rank step on the same batch and draws:
+         every gradient within max(a's bf16-vs-fp32 gap, 2^-7) of its scale
+         (phase 7's rule), the loss within the same rule, the BatchNorm
+         statistics within BN_TOL, each widened by the largest gap the
+         CPU's own reordering of the two-rank sums moves the leg at the
+         dryrun's tiny width in bf16 (read on the CPU, never from the card).
+         Planted: BatchNorm statistics left local must fail b; k|v cut
+         contiguously and the row-parallel bias added on both ranks must
+         fail c.
+      b32, c32. b and c in fp32 under PARALLEL32_OPTIM, against the fp32
+         one-rank step of a: the gradients, the weights after the step
+         (beyond one ulp), Adam's first moments (the clipped gradient)
+         and the loss within FP32_K times the CPU's own fp32 reordering gap
+         of the same leg at the dryrun's tiny width plus ULP_K times the
+         tensor's one-ulp response in a's fp32 step (a tensor of SMALL_LEAF
+         entries or more: at most GRAD_SHARE of them beyond it), the
+         statistics within BN_TOL plus that gap. Planted: the clip's norm over this rank's
+         shards must fail c32. c32 also holds GradSync's non-finite flag:
+         a NaN in rank 1's gradient, no rank steps; the flag left local,
+         rank 0 steps alone.
+      d. tp 2 forward of serve.yaml's policy (phase 3's, kernel knobs on,
+         flash_attention on the local heads): decoded actions equal the one
+         rank's, the logits within ACT_TOL of their scale and the latents
+         entering the decoder within LATENT_TOL (RMS); the two TP faults
+         must fail that.
+    The two-rank legs' times measure host staging of gloo's collectives on
+    one card, not scaling; multi-card runs are not verified here."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch.distributed as dist
+    from real_robot_nerf_actor_tpu_torch.ops import grid_sample
+    from real_robot_nerf_actor_tpu_torch.parallel import MeshSpec, make_mesh
+    from real_robot_nerf_actor_tpu_torch.parallel.mesh import free_port, init_rank, run_ranks
+    from real_robot_nerf_actor_tpu_torch.parallel.train_dp import render_draws
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActTrainer
+
+    t_phase = time.perf_counter()
+    grid_sample.FUSED_LERP_BACKEND = "pallas"
+    tr = NerfActTrainer(setting_b(), device=dev)
+    sd = noisy_weights(torch, tr.init_state(torch.Generator().manual_seed(0)).module.state_dict(),
+                       PARALLEL_BIAS_STD, 3)
+    batch = two_scene_batch(torch, tr)
+    rc = tr.jcfg.renderer
+    g = torch.Generator().manual_seed(1)
+    draws = dict(draws=torch.tensor([[0.37, -0.61, 0.18], [-0.52, 0.44, -0.27]]),
+                 ray_idx=torch.randint(0, rc.image_height * rc.image_width,
+                                       (rc.ray_chunk_size,), generator=g),
+                 render_draws=render_draws(rc, True, rc.ray_chunk_size, g))
+    draws_dev = dict(draws, draws=draws["draws"].to(dev))
+
+    # ---- a: one rank over NCCL, the wrapper against the bare step
+    init_rank(0, 1, free_port(), "nccl")
+    mesh = make_mesh(MeshSpec(data=1, model=1))
+    with deterministic_algorithms(torch):
+        bare_state = tr.init_state(torch.Generator().manual_seed(0))
+        bare_state.module.load_state_dict(sd)
+        bare_state, m_bare = tr.train_step(bare_state, batch, None, **draws_dev)
+        bare = dict(metrics={k: v.item() for k, v in m_bare.items()},
+                    grads={n: cpu32(p.grad) for n, p in bare_state.module.named_parameters()},
+                    buffers={k: cpu32(v) for k, v in bare_state.module.named_buffers()})
+        wrapped = joint_leg(torch, tr, sd, batch, draws_dev, mesh, False)
+    equal = (wrapped["metrics"] == bare["metrics"]
+             and all(torch.equal(wrapped["grads"][k], v) for k, v in bare["grads"].items())
+             and all(torch.equal(wrapped["buffers"][k], v) for k, v in bare["buffers"].items()))
+    # host and device time a step, bare and wrapped in turns
+    from real_robot_nerf_actor_tpu_torch.parallel.train_dp import make_data_parallel_step
+    w_state = tr.init_state(torch.Generator().manual_seed(0))
+    w_state.module.load_state_dict(sd)
+    w_step, place_state, _ = make_data_parallel_step(tr.train_step, mesh, w_state, batch)
+    w_state = place_state(w_state)
+    runs = {"bare": lambda: tr.train_step(bare_state, batch, None, **draws_dev),
+            "wrapped": lambda: w_step(w_state, batch, None, **draws_dev)}
+    host = {k: [] for k in runs}
+    for i in range(1 + PARALLEL_TIMED):
+        for name in (("bare", "wrapped") if i % 2 == 0 else ("wrapped", "bare")):
+            t = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            if i:
+                host[name].append((time.perf_counter() - t) * 1e3)
+    device = {}
+    for name, fn in runs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device[name] = sum(r[1] for r in device_rows(torch, prof))
+    a_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del bare_state, w_state, w_step, runs
+    dist.destroy_process_group()
+    # the tolerance: the same bare step in fp32 (phase 7's rule), under the
+    # fp32 legs' optimizer (the reference of b32 and c32)
+    tr32 = NerfActTrainer(with_parallel32_optim(setting_b(fp32=True)), device=dev)
+    with deterministic_algorithms(torch):
+        st32 = tr32.init_state(torch.Generator().manual_seed(0))
+        st32.module.load_state_dict(sd)
+        st32, m32 = tr32.train_step(st32, batch, None, **draws_dev)
+        ref32 = dict(step_record(torch, st32.module, st32.optimizer, m32, sd),
+                     grads={n: cpu32(p.grad) for n, p in st32.module.named_parameters()})
+        # the fp32 legs' widening: each tensor's largest response to a one-ulp
+        # move of every weight (seeded coins, then turned over) in this
+        # one-rank step, the reference the legs are held to (phase 10's rule)
+        resp32 = {"grads": {}, "moments": {}, "loss": 0.0}
+        for sign in (1, -1):
+            st = tr32.init_state(torch.Generator().manual_seed(0))
+            st.module.load_state_dict(sd)
+            move_one_ulp(torch, list(st.module.parameters()), sign)
+            st, m = tr32.train_step(st, batch, None, **draws_dev)
+            st_adam = st.optimizer.adamw.state
+            moved = {"grads": {n: cpu32(p.grad) for n, p in st.module.named_parameters()},
+                     "moments": {n: cpu32(st_adam[p]["exp_avg"]) for n, p in
+                                 zip(st.optimizer.names, st.optimizer.params) if p in st_adam}}
+            for kind in ("grads", "moments"):
+                for k, e in entry_gaps(moved, ref32, kind, ("policy." + INVARIANT,)).items():
+                    resp32[kind][k] = max(resp32[kind].get(k, 0.0), e.max().item())
+            resp32["loss"] = max(resp32["loss"], abs(m["loss_total"].item() - m32["loss_total"].item())
+                                 / abs(m32["loss_total"].item()))
+            del st, moved
+        resp32["params"] = resp32["moments"]   # the update is lr * moment / (0.1 * eps)
+    del st32, tr32
+    tol = {k: max(v, 2 ** -7) for k, v in rel_gaps(bare["grads"], ref32["grads"],
+                                                   skip=("policy." + INVARIANT,)).items()}
+    loss_tol = max(abs(bare["metrics"]["loss_total"] - m32["loss_total"].item())
+                   / abs(m32["loss_total"].item()), 2 ** -7)
+    emit("parallel_a", equal_to_bare_step=equal, loss_total=bare["metrics"]["loss_total"],
+         backend="nccl", world_size=1, host_p50_ms={k: statistics.median(v)
+                                                    for k, v in host.items()},
+         host_ms=host, device_ms=device, launches=wrapped["launches"], peak_gb=a_peak,
+         tol_median=statistics.median(tol.values()), tol_max=max(tol.values()),
+         loss_tol=loss_tol, card=card)
+    if not equal:
+        fail("parallel a: the world-size-1 step is not equal to the bare step")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- b, c, d: two ranks on cuda:0 over gloo
+    with tempfile.TemporaryDirectory() as tmp:
+        policy_sd = noisy_weights(torch, policy[1], POLICY_BIAS_STD, 4)
+        torch.save(dict(device=str(dev), sd=sd, batch={k: v.cpu() for k, v in batch.items()},
+                        draws=draws,
+                        policy_cfg=policy[0], policy_sd=policy_sd,
+                        policy_in=dict(vox=vox.cpu(), proprio=proprio.cpu(), lang=lang.cpu())),
+                   os.path.join(tmp, "in.pt"))
+        del batch, policy_sd
+        gc.collect()
+        t = time.perf_counter()
+        run_ranks(parallel_rank, 2, (os.path.join(tmp, "in.pt"), tmp),
+                  timeout_s=PARALLEL_DEADLINE_S)
+        ranks_s = time.perf_counter() - t
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(2)]
+    grid_sample.FUSED_LERP_BACKEND = "xla"
+    r0 = res[0]
+    cpu_ref = r0["cpu/one_rank"]
+    skip = ("policy." + INVARIANT,)
+
+    def slack(leg):
+        got = r0[f"cpu/{leg}"]
+        return (max(rel_gaps(got["grads"], cpu_ref["grads"], skip).values()),
+                max(rel_gaps(got["buffers"], cpu_ref["buffers"]).values()),
+                abs(got["metrics"]["loss_total"] - cpu_ref["metrics"]["loss_total"])
+                / abs(cpu_ref["metrics"]["loss_total"]))
+
+    def check(got, sl):
+        """(worst ratio of gap to bound over gradients, loss and statistics;
+        its tensor; the gaps)."""
+        gp = rel_gaps(got["grads"], bare["grads"], skip)
+        ratios = {k: gp[k] / (tol[k] + sl[0]) for k in gp}
+        bn = max(rel_gaps(got["buffers"], bare["buffers"]).values())
+        loss = (abs(got["metrics"]["loss_total"] - bare["metrics"]["loss_total"])
+                / abs(bare["metrics"]["loss_total"]))
+        ratios["buffers"] = bn / (BN_TOL + sl[1])
+        ratios["loss_total"] = loss / (loss_tol + sl[2])
+        worst = max(ratios, key=ratios.get)
+        return ratios[worst], worst, dict(
+            worst_gap=gp.get(worst), buffers_gap=bn, loss_gap=loss,
+            median_grad_ratio=statistics.median(v for k, v in ratios.items()
+                                                if k not in ("buffers", "loss_total")))
+
+    for leg, faults in (("b", ("bn_local",)), ("c", ("kv_contiguous", "bias_every_rank"))):
+        sl = slack(leg)
+        ratio, worst, info = check(r0[f"{leg}/None"], sl)
+        planted_f = {f: check(r0[f"{leg}/{f}"], sl)[:2] for f in faults}
+        emit(f"parallel_{leg}", mesh={"b": {"data": 2, "model": 1},
+                                      "c": {"data": 1, "model": 2}}[leg],
+             backend="gloo", ranks_on_one_card=2,
+             sharded_leaves=r0[f"{leg}/None"]["sharded"],
+             loss_total=r0[f"{leg}/None"]["metrics"]["loss_total"],
+             worst_gap_over_bound=ratio, worst=worst, **info,
+             cpu_reorder_slack={"grads": sl[0], "buffers": sl[1], "loss": sl[2]},
+             planted_faults={f: {"worst_gap_over_bound": x, "worst": w}
+                             for f, (x, w) in planted_f.items()},
+             per_rank=[{"first_step_s": r[f"{leg}/None"]["step_s"],
+                        "timed_ms": r[f"{leg}/None"]["timed_ms"],
+                        "peak_gb": r[f"{leg}/None"].get("peak_gb"),
+                        "launches": r[f"{leg}/None"]["launches"]} for r in res],
+             card=card)
+        if not ratio <= 1.0:
+            fail(f"parallel {leg}: {worst} is {ratio} x its bound")
+        for f, (x, w) in planted_f.items():
+            if not x > 1.0:
+                fail(f"parallel {leg}: the check does not see the planted fault {f} ({x}, {w})")
+
+    # b32, c32: the fp32 legs against the fp32 one-rank step
+    cpu_ref32 = r0["cpu/one_rank32"]
+    kinds32 = ("grads", "params", "moments")
+
+    def loss_gap(got, want):
+        return (abs(got["metrics"]["loss_total"] - want["metrics"]["loss_total"])
+                / abs(want["metrics"]["loss_total"]))
+
+    def slack32(leg):
+        """The CPU's own fp32 reorder gap of `leg` at the tiny width: the
+        largest entry gap of any kind and the loss; the statistics'."""
+        got = r0[f"cpu/{leg}32"]
+        gap = max([loss_gap(got, cpu_ref32)] + [
+            e.max().item() for kind in kinds32
+            for e in entry_gaps(got, cpu_ref32, kind, skip).values()])
+        return gap, max(rel_gaps(got["buffers"], cpu_ref32["buffers"]).values())
+
+    def check32(got, sl):
+        """Ratios to each tensor's bound, FP32_K * sl[0] of its scale plus
+        ULP_K times its one-ulp response (resp32): a tensor of fewer than
+        SMALL_LEAF entries by its largest gap, a larger one by the share of
+        its entries beyond the bound over GRAD_SHARE (phase 12's rule); the
+        loss by its gap, the statistics over BN_TOL plus sl[1]. (worst
+        ratio, its name, the worst by kind and the six worst.)"""
+        bound = FP32_K * sl[0]
+        ratios = {"loss_total": loss_gap(got, ref32) / (bound + ULP_K * resp32["loss"]),
+                  "buffers": max(rel_gaps(got["buffers"], ref32["buffers"]).values())
+                  / (BN_TOL + sl[1])}
+        for kind in kinds32:
+            for k, e in entry_gaps(got, ref32, kind, skip).items():
+                b = bound + ULP_K * resp32[kind][k]
+                ratios[f"{kind}:{k}"] = (e.max().item() / b if e.numel() < SMALL_LEAF
+                                         else (e > b).double().mean().item() / GRAD_SHARE)
+        top = sorted(ratios.items(), key=lambda kv: -kv[1])
+        return top[0][1], top[0][0], dict(
+            worst_by_kind={kind: max(v for k, v in ratios.items() if k.startswith(kind + ":"))
+                           for kind in kinds32},
+            worst=dict(top[:6]))
+
+    failed = []
+    for leg, faults in (("b32", ()), ("c32", ("clip_local",))):
+        sl = slack32(leg[0])
+        ratio, worst, info = check32(r0[f"{leg}/None"], sl)
+        planted_f = {f: check32(r0[f"{leg}/{f}"], sl) for f in faults}
+        nonfinite = [r[f"{leg}/None"].get("nonfinite") for r in res]
+        emit(f"parallel_{leg}", mesh={"b32": {"data": 2, "model": 1},
+                                      "c32": {"data": 1, "model": 2}}[leg],
+             backend="gloo", ranks_on_one_card=2, dtype="float32", optim=PARALLEL32_OPTIM,
+             loss_total=r0[f"{leg}/None"]["metrics"]["loss_total"],
+             loss_one_rank=ref32["metrics"]["loss_total"],
+             worst_gap_over_bound=ratio, worst_name=worst, **info,
+             bound=FP32_K * sl[0], grad_share=GRAD_SHARE, ulp_k=ULP_K,
+             ulp_response={kind: {"median": statistics.median(resp32[kind].values()),
+                                  "max": max(resp32[kind].values())}
+                           for kind in ("grads", "moments")} | {"loss": resp32["loss"]},
+             cpu_fp32_reorder_slack={"tensors": sl[0], "buffers": sl[1]},
+             planted_faults={f: {"worst_gap_over_bound": x, "worst_name": w,
+                                 "worst_by_kind": i["worst_by_kind"]}
+                             for f, (x, w, i) in planted_f.items()},
+             nonfinite=nonfinite if nonfinite[0] else None,
+             per_rank=[{"first_step_s": r[f"{leg}/None"]["step_s"],
+                        "peak_gb": r[f"{leg}/None"].get("peak_gb")} for r in res],
+             card=card)
+        if not ratio <= 1.0:
+            failed.append(f"parallel {leg}: {worst} is {ratio} x its bound")
+        for f, (x, w, i) in planted_f.items():
+            if not i["worst_by_kind"]["params"] > 1.0:   # the weights after the step
+                failed.append(f"parallel {leg}: the check does not see the planted fault {f} "
+                              f"({i['worst_by_kind']})")
+        if nonfinite[0]:
+            sound = [n["None"] for n in nonfinite]
+            local = [n["finite_local"] for n in nonfinite]
+            if any(x["stepped"] or x["moved"] for x in sound):
+                failed.append(f"parallel {leg}: a rank stepped on a non-finite gradient "
+                              f"({sound})")
+            if not (local[0]["stepped"] and local[0]["moved"] and not local[1]["stepped"]):
+                failed.append(f"parallel {leg}: the check does not see the non-finite flag "
+                              f"left local ({local})")
+    del ref32
+
+    want_out, want_dec, want_lat = r0["d/one_rank"]
+
+    def check_d(got):
+        out, dec, lat = got["out"]
+        gaps = {n: (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for n, a, b in zip(("q_trans", "q_rot_grip", "q_collision"), out, want_out)}
+        same = all(torch.equal(a, b) for a, b in zip(dec, want_dec))
+        latent = ((lat - want_lat).pow(2).mean().sqrt() / want_lat.pow(2).mean().sqrt()).item()
+        return gaps, same, latent, (same and max(gaps.values()) <= ACT_TOL
+                                    and latent <= LATENT_TOL)
+
+    gaps_d, same_d, lat_d, ok_d = check_d(r0["d/None"])
+    faults_d = {f: check_d(r0[f"d/{f}"]) for f in ("kv_contiguous", "bias_every_rank")}
+    emit("parallel_d", mesh={"data": 1, "model": 2}, logit_gap_of_scale=gaps_d,
+         decoded_equal=same_d, tol_of_scale=ACT_TOL, latent_rms_gap=lat_d,
+         latent_tol=LATENT_TOL, decoded=[d.tolist() for d in want_dec],
+         planted_faults={f: {"logit_gap_of_scale": g_, "decoded_equal": s_,
+                             "latent_rms_gap": l_}
+                         for f, (g_, s_, l_, _) in faults_d.items()},
+         per_rank=[{"forward_s": r["d/None"]["s"], "peak_gb": r["d/None"]["peak_gb"],
+                    "launches": r["d/None"]["launches"]} for r in res], card=card)
+    if failed:
+        fail("; ".join(failed))
+    if not ok_d:
+        fail(f"parallel d: the tp 2 forward leaves the one-rank forward ({gaps_d}, "
+             f"decoded equal {same_d}, latents {lat_d})")
+    for f, (_, _, _, ok) in faults_d.items():
+        if ok:
+            fail(f"parallel d: the check does not see the planted fault {f}")
+    emit("parallel", ranks_s=ranks_s, phase_wall_s=time.perf_counter() - t_phase,
+         note="two ranks share one card over gloo: their times measure host staging of "
+              "the collectives, not scaling; multi-card runs are not verified", card=card)
+
+
+def checkpoint_phase(torch, np, dev, card):
+    """Phase 14: the tools that read a trained checkpoint, at full width.
+
+    The port writes a kitchen of CKPT_DEMOS demos x CKPT_KEYFRAMES keyframes
+    at configs/nerfact.yaml's widths and trains the file in setting b
+    (conv3d_k3 and corner_lerp with their VJPs) on it for CKPT_STEPS steps
+    through `train/nerfact.main` (--data-root, --ckpt-dir; the config as a
+    JSON file: the card has no PyYAML). Then, on that checkpoint:
+      - `train/serve.main --ckpt-dir --joint`: the served policy's logits
+        on the first transition's voxels equal the trained module's (bit
+        for bit, deterministic algorithms), and two act steps;
+      - `tools/eval_quality.main` with every variant: the PSNRs of each (a
+        field trained for CKPT_STEPS steps is not a learned field: they
+        are not quality figures and are compared with nothing), and each
+        kernel variant's frame (pallas_bf16, pallas_int8 and the int8
+        serving variants) against the same variant's plain field
+        (mlp_backend "xla": same weights, occupancy, plan and draws) within
+        RGB_TOL and PSNR_MIN, the serving frame check; the launches of
+        ray_expand, corner_lerp and both MLP kernels in each variant
+        (its calibration and both views' frames);
+      - `tools/analyze_bc.main` and `tools/extract_nerf_feat.main` once each.
+    Fails on a logit that differs, a failed frame check, a kernel variant
+    that launched none of its kernels, or a tool that does not run."""
+    import tempfile
+
+    from real_robot_nerf_actor_tpu_torch.data.kitchen import write_kitchen_demos
+    from real_robot_nerf_actor_tpu_torch.data.replay import ReplaySource
+    from real_robot_nerf_actor_tpu_torch.ops import grid_sample, voxelize
+    from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import flash_attention
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
+    from real_robot_nerf_actor_tpu_torch.ops.ray_expand_cuda import ray_expand
+    from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import spatial_stats_3d
+    from real_robot_nerf_actor_tpu_torch.ops.resnetfc_cuda import (
+        fused_gather_resnetfc_int8, fused_resnetfc_int8)
+    from real_robot_nerf_actor_tpu_torch.render import NeuralRenderer, psnr
+    from real_robot_nerf_actor_tpu_torch.tools import analyze_bc, eval_quality, extract_nerf_feat
+    from real_robot_nerf_actor_tpu_torch.train import nerfact, serve
+    from real_robot_nerf_actor_tpu_torch.utils.config import to_dict
+
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    kitchen, ckpt = os.path.join(tmp, "kitchen"), os.path.join(tmp, "ckpt")
+    t = time.perf_counter()
+    write_kitchen_demos(kitchen, n_demos=CKPT_DEMOS, n_keyframes=CKPT_KEYFRAMES,
+                        image_hw=(128, 128), focal=76.18 * 128 / 80.0, d_embed=512)
+    write_s = time.perf_counter() - t
+    cfg = setting_b()
+    cfg = dataclasses.replace(cfg, peract=dataclasses.replace(
+        cfg.peract, train=dataclasses.replace(cfg.peract.train, ckpt_every=CKPT_STEPS,
+                                              eval_every=10 ** 9, log_every=1)))
+    cfg_path = os.path.join(tmp, "nerfact_b.json")
+    with open(cfg_path, "w") as f:
+        json.dump(to_dict(cfg), f)
+    counters = {"flash_attention": (flash_attention, "wgmma_launches"),
+                "spatial_stats_3d": (spatial_stats_3d, "cuda_launches"),
+                "conv3d_k3": (conv3d_k3, "wgmma_launches"),
+                "conv3d_k3_vjp": (conv3d_k3, "vjp_calls"),
+                "corner_lerp": (corner_lerp, "cuda_launches"),
+                "corner_lerp_vjp": (corner_lerp, "vjp_calls"),
+                "ray_expand": (ray_expand, "cuda_launches"),
+                # every design: the bf16 variants run the MLP on mma.sync
+                "fused_resnetfc_int8": (fused_resnetfc_int8, "launches"),
+                "fused_gather_resnetfc_int8": (fused_gather_resnetfc_int8, "launches")}
+
+    def zero():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    grid_sample.FUSED_LERP_BACKEND = "pallas"
+    zero()
+    t = time.perf_counter()
+    state = nerfact.main(["--config", cfg_path, "--data-root", kitchen, "--n-demos",
+                          str(CKPT_DEMOS), "--steps", str(CKPT_STEPS), "--ckpt-dir", ckpt,
+                          "--no-resume", "--device", str(dev)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_launches = read()
+    emit("checkpoint_train", steps=CKPT_STEPS, write_s=write_s, train_s=train_s,
+         launches=train_launches, checkpoints=sorted(os.listdir(ckpt)), card=card)
+    want = {"flash_attention": 0, "spatial_stats_3d": 0, "conv3d_k3": CKPT_STEPS,
+            "conv3d_k3_vjp": CKPT_STEPS, "corner_lerp": 2 * CKPT_STEPS,
+            "corner_lerp_vjp": 2 * CKPT_STEPS}
+    if any(train_launches[k] != v for k, v in want.items()):
+        fail(f"checkpoint: training launches {train_launches}, want {want}")
+
+    # ---- serve the checkpoint's policy
+    serve_argv = ["--ckpt-dir", ckpt, "--joint", "--config", cfg_path, "--steps", "2"]
+    src = ReplaySource(kitchen, CKPT_DEMOS)
+    tr, tr_state = eval_quality.restore_joint(cfg, ckpt, dev)
+    cloud = eval_quality.cloud_of(tr, src, 0, 0)
+    m = cfg.peract.model
+    lang = torch.zeros((1, m.lang_max_seq_len, m.lang_emb_dim), device=dev)
+    with deterministic_algorithms(torch), torch.inference_mode():
+        server, _, _ = serve.build_server(serve_argv + ["--device", str(dev)])
+        vox = voxelize(*cloud[:2], tr.bounds, cfg.peract.voxelizer, valid=cloud[2])
+        trained = state.module["policy"].eval()
+        got = server.net(vox, cloud[3], lang)
+        want_out = trained(vox, cloud[3], lang)
+    logits_equal = all(torch.equal(a, b) for a, b in zip(got[:3], want_out[:3]))
+    del server, got, want_out, trained, state
+    t = time.perf_counter()
+    trace = serve.main(serve_argv + ["--device", str(dev)])
+    serve_s = time.perf_counter() - t
+    emit("checkpoint_serve", logits_equal_to_trained=logits_equal, act_steps=len(trace),
+         actions=[{k: np.round(np.asarray(a[k], float), 4).tolist()
+                   for k in ("xyz", "rotation", "gripper_open")} for a in trace],
+         serve_s=serve_s, card=card)
+    if not logits_equal or len(trace) != 2:
+        fail("checkpoint: the served policy differs from the trained one")
+
+    # ---- eval_quality over every variant, each kernel variant's frame
+    # against its plain field's
+    frames, launches = {}, {}
+    # the checkpoint's policy with the forward kernels on (they refuse grad,
+    # so training ran without them; the parameters are the same)
+    knobs_on = ["-o", "peract.model.use_flash_attention=true",
+                "-o", "peract.model.stats_backend=pallas"]
+    zero()
+
+    def on_frame(name, rend, frame):
+        now = read()
+        launches[name] = {k: now[k] for k in ("ray_expand", "corner_lerp",
+                                              "fused_resnetfc_int8",
+                                              "fused_gather_resnetfc_int8")}
+        launches[name]["policy"] = {k: now[k] for k in ("flash_attention", "spatial_stats_3d",
+                                                        "conv3d_k3")}
+        frames[name] = frame
+        zero()
+
+    seam = eval_quality.on_frame
+    eval_quality.on_frame = on_frame
+    t = time.perf_counter()
+    try:
+        with deterministic_algorithms(torch):
+            report = eval_quality.main(knobs_on + [
+                "--config", cfg_path, "--ckpt-dir", ckpt, "--data-root", kitchen,
+                "--n-demos", str(CKPT_DEMOS), "--holdout-demos", str(CKPT_DEMOS - 1),
+                "--n-perturb", "1", "--out", os.path.join(tmp, "quality.json"),
+                "--device", str(dev)])
+    finally:
+        eval_quality.on_frame = seam
+    eval_s = time.perf_counter() - t
+    decode_launches = read()   # the BC decodes, after the last frame
+    with deterministic_algorithms(torch), torch.inference_mode():
+        vox = voxelize(*cloud[:2], tr.bounds, cfg.peract.voxelizer, valid=cloud[2])
+        d0 = tr._policy_out(tr_state, cloud, lang)[3]
+    pose = torch.as_tensor(src.gt_pose, device=dev)[None]
+    focal = torch.tensor(src.focal, device=dev)
+    checks = {}
+    for name, overrides in eval_quality.VARIANTS:
+        if "mlp_backend" not in overrides:
+            continue
+        rend = NeuralRenderer(eval_quality.variant_config(
+            cfg.renderer, dict(overrides, mlp_backend="xla")), device=dev)
+        rend.load_field(tr_state.module["nerf"].state_dict())
+        with deterministic_algorithms(torch), torch.inference_mode():
+            occ = rend.prepare(d0[:1], occupancy=vox[0, ..., -1],
+                               generator=torch.Generator(device=dev).manual_seed(0))
+            plan = (rend.plan_rays(occ, pose, focal) if rend.cfg.use_ray_plan
+                    and rend.cfg.sampling_mode == "occupancy" and occ is not None else None)
+            rgb_x = rend.render_image(d0[:1], pose, focal,
+                                      torch.Generator(device=dev).manual_seed(7),
+                                      occ=occ, plan=plan)[0].float()
+        rgb = torch.as_tensor(frames[name], device=dev)
+        gap, db = (rgb - rgb_x).abs().max().item(), psnr(rgb, rgb_x).item()
+        n_kernels = sum(v for k, v in launches[name].items() if k != "policy")
+        checks[name] = dict(max_rgb_gap=gap, psnr_db=db, launches=launches[name],
+                            ok=gap <= RGB_TOL and db >= PSNR_MIN and n_kernels > 0)
+    names = [k for k, _ in eval_quality.VARIANTS if k in report]
+    emit("checkpoint_eval", variants=names, eval_s=eval_s,
+         psnr={k: report[k]["psnr"] for k in names},
+         psnr_holdout={k: report[k].get("psnr_holdout") for k in names},
+         note=f"a field trained for {CKPT_STEPS} steps from random weights is not a learned "
+              "field: these PSNRs are no quality figures and are compared with nothing",
+         bc=report["bc"], bc_holdout=report.get("bc_holdout_demo"),
+         bc_se3_perturbed=report.get("bc_se3_perturbed"),
+         kernel_vs_plain_field=checks, rgb_tol=RGB_TOL, psnr_min=PSNR_MIN,
+         decode_launches={k: decode_launches[k] for k in ("flash_attention",
+                                                           "spatial_stats_3d", "conv3d_k3")},
+         launches_xla_variants={k: launches[k] for k in launches if k not in checks},
+         card=card)
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if bad:
+        fail(f"checkpoint: kernel variants off their plain field's frame: {bad}")
+    if not all(decode_launches[k] for k in ("flash_attention", "spatial_stats_3d", "conv3d_k3")):
+        fail(f"checkpoint: the decodes launched {decode_launches}")
+    del tr_state, d0, frames
+
+    t = time.perf_counter()
+    lines = analyze_bc.main(knobs_on + ["--config", cfg_path, "--ckpt-dir", ckpt, "--data-root",
+                                        kitchen, "--n-demos", str(CKPT_DEMOS),
+                                        "--device", str(dev)])
+    analyze_s = time.perf_counter() - t
+    t = time.perf_counter()
+    res = extract_nerf_feat.main(["--config", cfg_path, "--ckpt-dir", ckpt,
+                                  "--out", os.path.join(tmp, "feat.npz"), "--device", str(dev)])
+    extract_s = time.perf_counter() - t
+    grid_sample.FUSED_LERP_BACKEND = "xla"
+    n_pts = int(res["points"].shape[0])
+    emit("checkpoint_tools", analyze_bc_lines=len(lines), analyze_s=analyze_s,
+         extract_points=n_pts, extract_threshold=float(res["threshold"]),
+         extract_s=extract_s, card=card)
+    if len(lines) != CKPT_DEMOS * (CKPT_KEYFRAMES - 1) or not n_pts:
+        fail(f"checkpoint: analyze_bc wrote {len(lines)} lines, extract_nerf_feat "
+             f"{n_pts} points")
+    tmp_dir.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("checkpoint", phase_wall_s=time.perf_counter() - t_phase, card=card)
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "real_robot_nerf_actor_tpu_torch" / "csrc").is_dir():
@@ -4282,6 +5308,16 @@ def main():
 
     # ----------------------------------------------------------- 12. camera
     camera_phase(torch, np, dev, card, server_on, server_off)
+
+    # --------------------------------------------------------- 13. parallel
+    lang_t = server_on.lang
+    del server_on, server_off, out_on, out_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_phase(torch, np, dev, card, (cfg_on, sd_on), vox, proprio, lang_t)
+
+    # ------------------------------------------------------- 14. checkpoint
+    checkpoint_phase(torch, np, dev, card)
 
     # ------------------------------------------------------ summary
     info = {

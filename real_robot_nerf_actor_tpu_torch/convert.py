@@ -67,11 +67,21 @@ needs no row permutation), the VL modules (`LayerNorm_0`, `norm_lang`,
 transformer's unnamed `LayerNorm_{i}`, `Dense_{2i}`, `Dense_{2i+1}`) and
 `MultiLayer3DEncoder` (flax numbers the stride-1 cell of each level before
 its stride-2 cell, and the port's names follow).
+
+Tensor parallelism (`parallel/`) cuts a state_dict by an explicit
+placement (`parallel.mesh.shard_params_rule`): `shard_state_dict` gives
+model rank r's shards, `gather_state_dict` puts the ranks' shards back
+together. A column-parallel leaf is cut along its output features, in
+`chunks` equal pieces each cut alike (to_kv holds k | v, GEGLU's Dense_0 h |
+gates: rank r takes its heads of k and of v, never a contiguous half); a
+row-parallel weight along its input features. Checkpoints are written
+whole, so a tensor-parallel run's checkpoint loads at any world size.
 """
 from __future__ import annotations
 
+import dataclasses
 import struct
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -181,6 +191,68 @@ def final_conv_as_plain(state_dict: Mapping[str, torch.Tensor],
     sd[f + "Conv_0.weight"] = sd.pop(f + "pallas_kernel").permute(4, 3, 0, 1, 2)
     sd[f + "Conv_0.bias"] = sd.pop(f + "pallas_bias")
     return sd
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """How a leaf is cut over the model axis: "column" along its output
+    features (torch dim 0 of a Dense weight, the bias), in `chunks` fused
+    pieces cut alike; "row" along its input features (dim 1)."""
+    kind: str
+    chunks: int = 1
+
+    @property
+    def dim(self) -> int:
+        return 0 if self.kind == "column" else 1
+
+
+def shard_index(width: int, placement: Placement, rank: int, size: int) -> torch.Tensor:
+    """The indices along `placement.dim` (whole width `width`) that model
+    rank `rank` of `size` holds, in the order its shard holds them."""
+    chunk = width // placement.chunks
+    if width % placement.chunks or chunk % size:
+        raise ValueError(f"a width of {width} in {placement.chunks} chunks does not "
+                         f"split over {size} ranks")
+    piece = chunk // size
+    return torch.cat([torch.arange(k * chunk + rank * piece, k * chunk + (rank + 1) * piece)
+                      for k in range(placement.chunks)])
+
+
+def shard_tensor(x: torch.Tensor, placement: Placement, rank: int, size: int) -> torch.Tensor:
+    """Rank `rank`'s shard of the whole leaf `x`."""
+    idx = shard_index(x.shape[placement.dim], placement, rank, size)
+    return x.index_select(placement.dim, idx.to(x.device))
+
+
+def shard_state_dict(state_dict: Mapping[str, torch.Tensor],
+                     placements: Mapping[str, Placement], rank: int, size: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Model rank `rank`'s tensor-parallel state_dict of a whole one: every
+    leaf named in `placements` cut to its shard, the rest as they are."""
+    return {k: shard_tensor(v, placements[k], rank, size) if k in placements else v
+            for k, v in state_dict.items()}
+
+
+def gather_state_dict(shards: Sequence[Mapping[str, torch.Tensor]],
+                      placements: Mapping[str, Placement]) -> Dict[str, torch.Tensor]:
+    """The whole state_dict of the model ranks' shards (shards[r] is rank
+    r's): each leaf of `placements` put back at `shard_index`'s places, the
+    rest taken from rank 0."""
+    size = len(shards)
+    out = {}
+    for k, v in shards[0].items():
+        pl = placements.get(k)
+        if pl is None:
+            out[k] = v
+            continue
+        shape = list(v.shape)
+        shape[pl.dim] *= size
+        whole = v.new_zeros(shape)
+        for r, s in enumerate(shards):
+            whole.index_copy_(pl.dim, shard_index(shape[pl.dim], pl, r, size).to(v.device),
+                              s[k])
+        out[k] = whole
+    return out
 
 
 def load_optax_state(optimizer, opt_state) -> None:

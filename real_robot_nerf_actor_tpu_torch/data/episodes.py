@@ -22,7 +22,10 @@ from real_robot_nerf_actor_tpu_torch.data.demos import KeyframeBuffer, Trajector
 from real_robot_nerf_actor_tpu_torch.data.replay import PointCloudSample, pad_point_cloud
 
 
-def save_trajectory(path: str, tr: Trajectory) -> None:
+def save_trajectory(path: str, tr: Trajectory, pointclouds=None) -> None:
+    """Write `tr` as an .npz. `pointclouds` is accepted and ignored, as the
+    JAX package's signature takes and ignores it: point-cloud observations
+    travel in `tr.observations`."""
     data = dict(actions=np.stack(tr.actions), rewards=np.asarray(tr.rewards),
                 ee_positions=np.stack(tr.ee_positions),
                 gripper_open=np.asarray(tr.gripper_open), success=tr.success)

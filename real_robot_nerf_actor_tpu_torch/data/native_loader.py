@@ -83,6 +83,16 @@ def get_lib() -> ctypes.CDLL:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the native loader builds (or is built) and loads here. Never
+    raises: the loader itself still raises on a failed build."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _fptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 

@@ -215,6 +215,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def batch_moments(self, xf, dims):
+        """The batch's mean and biased variance over `dims` (flax's fast
+        variance; `parallel.train_dp` takes them over the global batch)."""
+        mean = xf.mean(dim=dims)
+        return mean, torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+
     def forward(self, x, train: bool = False):
         if not train and self.running_mean.requires_grad:
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
@@ -224,9 +230,7 @@ class BatchNorm(nn.Module):
                              self.weight, self.bias, training=False, eps=self.eps)
             return y.movedim(1, -1)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        mean, var = self.batch_moments(xf, tuple(range(x.dim() - 1)))
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

@@ -117,16 +117,17 @@ class MHAttention(nn.Module):
         context = x if context is None else context
         q = self.to_q(x)
         k, v = self.to_kv(context).chunk(2, dim=-1)
+        heads = q.shape[-1] // self.dim_head   # a model rank's, when cut (parallel/)
 
         def split_heads(t):
             b, n, _ = t.shape
-            return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+            return t.reshape(b, n, heads, self.dim_head).transpose(1, 2)
 
         q, k, v = map(split_heads, (q, k, v))
         if self.use_flash:
             # the kernel reads the strided head views and writes (B, N, H*D)
             # through a view of the same layout: no copy either way
-            out = q.new_empty((x.shape[0], x.shape[1], self.heads * self.dim_head))
+            out = q.new_empty((x.shape[0], x.shape[1], heads * self.dim_head))
             flash_attention(q, k, v, out=split_heads(out))
         elif self.dropout_rate > 0 and not deterministic:
             s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * self.dim_head ** -0.5

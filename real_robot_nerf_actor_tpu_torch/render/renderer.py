@@ -596,7 +596,8 @@ class NeuralRenderer(nn.Module):
                        gt_embed=None, gt_depth=None, c_principal=None,
                        occ: Optional[OccupancyState] = None,
                        ray_idx: Optional[torch.Tensor] = None,
-                       draws: Optional[Mapping[str, torch.Tensor]] = None):
+                       draws: Optional[Mapping[str, torch.Tensor]] = None,
+                       depth_denominator=None):
         """Sampled-ray rendering loss of one view (the JAX package's
         `rendering_loss`): ray_chunk_size rays of the (1, H, W) view, the
         coarse and fine rgb MSE, lambda_embed times the embed MSE of both
@@ -604,7 +605,10 @@ class NeuralRenderer(nn.Module):
         masked depth MSE of both against gt_depth (1, H, W) where
         gt_depth < z_far. gt_rgb (1, H, W, 3) in [0, 1], gt_pose (1, 4, 4).
         ray_idx (ray_chunk_size,) picks the rays (else drawn uniformly from
-        `generator`); draws go to render_rays. Returns (loss, metrics)."""
+        `generator`); draws go to render_rays. depth_denominator maps the
+        count of depth-masked rays to the depth terms' denominator (default
+        max(count, 1); a ray-parallel step passes the global one). Returns
+        (loss, metrics)."""
         cfg = self.cfg
         h, w = cfg.image_height, cfg.image_width
         rays = gen_rays(gt_pose, w, h, focal, cfg.z_near, cfg.z_far,
@@ -634,7 +638,8 @@ class NeuralRenderer(nn.Module):
         if gt_depth is not None and cfg.lambda_depth > 0:
             gt_d = gt_depth.reshape(-1)[ray_idx]
             mask = (gt_d < cfg.z_far).to(gt_d.dtype)
-            denom = torch.clamp(mask.sum(), min=1.0)
+            denom = (torch.clamp(mask.sum(), min=1.0) if depth_denominator is None
+                     else depth_denominator(mask.sum()))
             loss_d_c = cfg.lambda_depth * torch.sum(mask * (coarse.depth - gt_d) ** 2) / denom
             loss_d_f = cfg.lambda_depth * torch.sum(mask * (fine.depth - gt_d) ** 2) / denom
             loss = loss + loss_d_c + loss_d_f

@@ -10,9 +10,15 @@ per forward:
 
     python -m real_robot_nerf_actor_tpu_torch.tools.profile_policy \
         [--plain] [--dtype bfloat16] [--out DIR] [--n-inner 4] [--top 25]
+        [--upsample-mode MODE] [--conv-backend NAME] [--pointwise]
+        [--shuffle-transpose]
 
 --plain runs the plain versions in place of the hand-written kernels
-(flash attention, the k3 conv, the spatial stats). Needs a CUDA card.
+(flash attention, the k3 conv, the spatial stats). --upsample-mode and
+--conv-backend override PerceiverConfig (after --plain). --pointwise and
+--shuffle-transpose are the script's TPU lowering switches: the port runs
+those lowerings as the maths they compute, so both are accepted and change
+nothing. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -74,7 +80,7 @@ def aggregate_trace(path: str):
     return total, dict(by_class), dict(by_name)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--plain", action="store_true",
                     help="the plain versions in place of the hand-written kernels")
@@ -82,18 +88,45 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--out", default=None, help="trace directory (default: a temporary one)")
     ap.add_argument("--n-inner", type=int, default=4)
     ap.add_argument("--top", type=int, default=25)
-    args = ap.parse_args(argv)
+    ap.add_argument("--upsample-mode", default=None,
+                    help="override PerceiverConfig.upsample_mode")
+    ap.add_argument("--conv-backend", default=None,
+                    help="override PerceiverConfig.conv_backend (xla|pallas|conv2d)")
+    ap.add_argument("--pointwise", action="store_true",
+                    help="accepted, no effect: the port computes the pointwise "
+                         "conv lowering as the plain conv")
+    ap.add_argument("--shuffle-transpose", action="store_true",
+                    help="accepted, no effect: the port computes the shuffled "
+                         "transposed-conv lowering as the plain transposed conv")
+    return ap.parse_args(argv)
+
+
+def build_config(args: argparse.Namespace):
+    """The PerceiverConfig the tool profiles: serve.yaml's policy in
+    args.dtype, the kernel knobs unless --plain, then the overrides."""
+    from real_robot_nerf_actor_tpu_torch.models import PerceiverConfig
+
+    kw = {**SERVE_POLICY, "compute_dtype": args.dtype,
+          **({} if args.plain else KERNEL_KNOBS)}
+    if args.upsample_mode:
+        kw["upsample_mode"] = args.upsample_mode
+    if args.conv_backend:
+        kw["conv_backend"] = args.conv_backend
+    return PerceiverConfig(**kw)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parse_args(argv)
 
     import torch
-    from real_robot_nerf_actor_tpu_torch.models import PerceiverConfig, PerceiverIO
+    from real_robot_nerf_actor_tpu_torch.models import PerceiverIO
     from real_robot_nerf_actor_tpu_torch.models.blocks import Conv3DBlock
     from real_robot_nerf_actor_tpu_torch.ops import choose_highest_action
     from real_robot_nerf_actor_tpu_torch.train.serve import resolve_device
     from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope, trace
 
     dev = resolve_device("cuda")
-    knobs = {} if args.plain else KERNEL_KNOBS
-    cfg = PerceiverConfig(**{**SERVE_POLICY, "compute_dtype": args.dtype, **knobs})
+    cfg = build_config(args)
     net = PerceiverIO.initialized(cfg, torch.Generator().manual_seed(0)).to(dev).eval()
     for m in net.modules():
         if isinstance(m, Conv3DBlock):

@@ -75,7 +75,12 @@ class NerfActConfig:
 
 
 class NerfActTrainer(PerActTrainer):
-    """The PerAct trainer plus the joint rendering loss, on `device`."""
+    """The PerAct trainer plus the joint rendering loss, on `device`.
+    `ray_split` (set by parallel.train_dp for a ray-parallel step) maps the
+    render loss's inputs (sample 0's d0 and view, the rays and their draws)
+    to this rank's share; None renders them as they are."""
+
+    ray_split: Optional[Callable] = None
 
     def __init__(self, cfg: NerfActConfig, device="cuda"):
         if not cfg.peract.model.return_voxel_feat:
@@ -154,10 +159,17 @@ class NerfActTrainer(PerActTrainer):
                 gt_pose = gt_pose.clone()
                 gt_pose[:, :3, 3] += aug.shift
         with record_function("train_step.render"):
+            view = [None if t is None else t[:1] for t in (
+                out[3], batch["gt_rgb"], gt_pose, batch["focal"], batch.get("gt_embed"),
+                batch.get("gt_depth"))]
+            denominator = None
+            if self.ray_split is not None:
+                view, ray_idx, render_draws, denominator = self.ray_split(
+                    view, ray_idx, render_draws)
+            d0, gt_rgb, pose, focal, gt_embed, gt_depth = view
             render_loss, rmetrics = self._renderer_of(state).rendering_loss(
-                out[3][:1], batch["gt_rgb"][:1], gt_pose[:1], batch["focal"][0], generator,
-                gt_embed=batch.get("gt_embed"), gt_depth=batch.get("gt_depth"),
-                ray_idx=ray_idx, draws=render_draws)
+                d0, gt_rgb, pose, focal[0], generator, gt_embed=gt_embed, gt_depth=gt_depth,
+                ray_idx=ray_idx, draws=render_draws, depth_denominator=denominator)
             metrics.update(rmetrics)
             total = jc.lambda_bc * bc_total + jc.lambda_nerf * render_loss
             metrics["loss_total"] = total

@@ -233,31 +233,54 @@ def run_deployment_scan(server: PolicyServer, steps: Sequence[ReplayStep],
     return trace
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
-    """Closed-loop deployment over a replayed synthetic scene with a
-    randomly initialised policy (the counterpart of scripts/serve_policy.py,
-    without checkpoint loading)."""
+def build_server(argv: Optional[Sequence[str]] = None):
+    """The deployment `main` runs, from its flags: (PolicyServer, the
+    ReplayRobotIO of the synthetic scene, the parsed arguments). With
+    --ckpt-dir the policy's weights come from the latest checkpoint, restored
+    through CheckpointManager.restore(state, params_only=True) into a fresh
+    trainer state (as scripts/serve_policy.py restores them); --joint reads
+    a NeRF-Actor checkpoint (train/nerfact.py) and serves its policy, and -o
+    then addresses NerfActConfig (peract.model.depth=...)."""
     from real_robot_nerf_actor_tpu_torch.data.replay import ReplayRobotIO
     from real_robot_nerf_actor_tpu_torch.data.synthetic import (
         make_replay_steps, make_synthetic_demo, make_synthetic_scene)
-    from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig
-    from real_robot_nerf_actor_tpu_torch.utils.config import apply_override
+    from real_robot_nerf_actor_tpu_torch.utils.config import load_config
 
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0, help="weights' seed")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the latest checkpoint's policy (params only)")
+    ap.add_argument("--joint", action="store_true",
+                    help="the checkpoint and the config are NeRF-Actor ones")
+    ap.add_argument("--config", default=None,
+                    help="JSON/YAML PerActConfig (NerfActConfig with --joint)")
     ap.add_argument("-o", "--override", action="append", default=[],
-                    help="PerActConfig dot-override, e.g. model.depth=2")
+                    help="config dot-override, e.g. model.depth=2")
     args = ap.parse_args(argv)
 
-    cfg = PerActConfig()
-    for ov in args.override:
-        k, _, v = ov.partition("=")
-        cfg = apply_override(cfg, k.strip(), v.strip())
+    if args.joint:
+        from real_robot_nerf_actor_tpu_torch.train.nerfact import (
+            NerfActConfig, NerfActTrainer)
+        jcfg = load_config(NerfActConfig, args.config, args.override)
+        cfg, trainer_of = jcfg.peract, lambda dev: NerfActTrainer(jcfg, device=dev)
+    else:
+        from real_robot_nerf_actor_tpu_torch.train.peract import (
+            PerActConfig, PerActTrainer)
+        cfg = load_config(PerActConfig, args.config, args.override)
+        trainer_of = lambda dev: PerActTrainer(cfg, device=dev)   # noqa: E731
     device = resolve_device(args.device)
-    net = PerceiverIO.initialized(
-        cfg.model, torch.Generator().manual_seed(args.seed))
+    if args.ckpt_dir:
+        from real_robot_nerf_actor_tpu_torch.train.trainer import CheckpointManager
+        state = trainer_of(device).init_state(torch.Generator().manual_seed(args.seed))
+        restored = CheckpointManager(args.ckpt_dir).restore(state, params_only=True)
+        if restored is None:
+            raise SystemExit(f"no checkpoint in {args.ckpt_dir}")
+        print(f"restored step {int(restored.step)}")
+        net = restored.module["policy"] if args.joint else restored.module
+    else:
+        net = PerceiverIO.initialized(cfg.model, torch.Generator().manual_seed(args.seed))
     scene = make_synthetic_scene(seed=0)
     robot = ReplayRobotIO(make_replay_steps(scene, make_synthetic_demo(scene)))
     server = PolicyServer(
@@ -267,6 +290,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         cfg.model, cfg.voxelizer, net.state_dict(),
         np.zeros((cfg.model.lang_max_seq_len, cfg.model.lang_emb_dim),
                  np.float32), device=device)
+    return server, robot, args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
+    """Closed-loop deployment over a replayed synthetic scene (the
+    counterpart of scripts/serve_policy.py): the policy of --ckpt-dir's
+    latest checkpoint, else random weights from --seed."""
+    server, robot, _ = build_server(argv)
     trace = run_deployment(server, robot)
     for a in trace:
         print(a["step"], a["xyz"].round(3), a["rotation"].round(1),

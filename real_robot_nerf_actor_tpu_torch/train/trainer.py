@@ -169,7 +169,15 @@ class Optimizer:
         at the lr of `make_schedule` for the count of inner updates.
 
     The parameters' `.grad` are left as the caller's backward made them.
+
+    `sync` (set by parallel.train_dp for a data- or tensor-parallel step)
+    first replaces every `.grad` by its mean over the data ranks, reduces
+    the non-finite flag over every rank, so that no rank skips a step
+    another takes, and takes the clip's global norm over the model ranks'
+    shards; None steps on this process's gradients alone.
     """
+
+    sync = None
 
     def __init__(self, cfg: OptimConfig, named_params: Iterable[Tuple[str, torch.Tensor]]):
         if cfg.name not in ("adamw", "adam"):
@@ -202,8 +210,12 @@ class Optimizer:
         (AdamW) update ran."""
         c = self.cfg
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.sync is not None:
+            grads = self.sync.reduce_grads(self.params, grads)
         if c.skip_nonfinite > 0:
             finite = _all_finite(grads)
+            if self.sync is not None:
+                finite = self.sync.all_finite(finite)
             self.last_finite = finite
             if not finite:
                 self.notfinite_count += 1
@@ -223,7 +235,9 @@ class Optimizer:
             grads = self.acc
             self.gradient_step += 1
         if c.grad_clip > 0:
-            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2)))
+            norms = torch.stack(torch._foreach_norm(grads, 2))
+            g_norm = (torch.linalg.vector_norm(norms) if self.sync is None
+                      else self.sync.global_norm(norms))
             scale = torch.where(g_norm < c.grad_clip, torch.ones_like(g_norm),
                                 c.grad_clip / g_norm)
             grads = torch._foreach_mul(grads, scale)
@@ -312,9 +326,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState):
-        payload = {"step": int(state.step), "params": state.module.state_dict(),
-                   "opt_state": state.optimizer.state_dict(), "extra": state.extra}
+    def save(self, step: int, state: TrainState, params=None, opt_state=None):
+        """Write `state` as ckpt_<step>.pt; params / opt_state, where given,
+        stand in for its module's state_dict and its optimizer's (a
+        tensor-parallel run passes the whole ones)."""
+        payload = {"step": int(state.step),
+                   "params": state.module.state_dict() if params is None else params,
+                   "opt_state": (state.optimizer.state_dict() if opt_state is None
+                                 else opt_state),
+                   "extra": state.extra}
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))

@@ -1,6 +1,6 @@
 """Config loading (the port's copy of the JAX package's utils/config.py),
 the logger, profiling ranges and timers, the kernel build cache, PCA and
-visualisation."""
+visualisation, video recording."""
 from real_robot_nerf_actor_tpu_torch.utils.logger import AverageMeter, Logger
 from real_robot_nerf_actor_tpu_torch.utils.profiling import StepTimer, named_scope
 
