@@ -154,6 +154,19 @@ Phases, each reported on its own line:
      serving variant of tools/eval_quality.py (each kernel variant's frame
      against its plain field's), tools/analyze_bc.py and
      tools/extract_nerf_feat.py.
+ 15. envs_forensics: the MuJoCo xArm suite's data on the card and the
+     gradient forensics tool (see envs_forensics_phase): the fixture the
+     port's envs wrote (tests/fixtures/mujoco_xarm), its episodes into the
+     PerAct step of configs/peract.yaml with conv3d_k3 and its VJP (the
+     kernels against the plain conv, card against CPU in float64, planted
+     faults) and its scenes into the FeatureNeRF step (phase 9's rule);
+     where MuJoCo imports, the fixture written again and SAC on live
+     pixels, else a line saying "mujoco": "absent"; then
+     tools/grad_forensics.py on a
+     configs/nerfact.yaml run in setting b: replay from the midway
+     checkpoint equal to the run bit for bit, and two planted faults (a
+     field weight, a latent attention weight set to inf) located by replay,
+     dissect, probe and mint.
 It fails (exit code 1, no result line) without a CUDA card, outside a
 checkout, or when any phase fails. The last lines are the kernels JSON, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -428,6 +441,29 @@ BN_TOL = 1e-4
 CKPT_DEMOS = 2
 CKPT_KEYFRAMES = 3
 CKPT_STEPS = 4
+# phase 15 (envs_forensics): the fixture tools/gen_data.py wrote with the
+# port's MuJoCo envs (its manifest.json lists the commands, the digests and
+# the cuts); EPISODE_STEPS bf16 PerAct steps on its episodes; SAC on live
+# pixels where MuJoCo imports (the card's machine has none); grad_forensics
+# on configs/nerfact.yaml in setting b over a multi-kitchen dataset at its
+# widths (128 x 128 views, 512-dim embeds), cut to 2 kitchens x 1 task x 2
+# demos, trained FORENSICS_STEPS steps with a checkpoint at FORENSICS_MID
+FIXTURE_DIR = "tests/fixtures/mujoco_xarm"
+EPISODE_STEPS = 4
+EPISODE_DRAWS = [[0.37, -0.61, 0.18]]    # the SE(3) uniforms of every episode step
+# the float64 card-vs-CPU pass of the episodes' PerAct step runs at this
+# voxel size (the CPU's float64 step at 100^3 takes minutes), and a fault
+# confined to the input conv's bias scales its gradient by 1 + BIAS_FAULT
+F64_VOXELS = 50
+BIAS_FAULT = 1e-6
+SAC_LIVE = dict(hw=64, transitions=256, batch=128, updates=4)
+FORENSICS_DATA = dict(n_kitchens=2, n_tasks=1, n_demos=2, image_hw=(128, 128), d_embed=512,
+                      n_points=60000)
+FORENSICS_STEPS = 6
+FORENSICS_MID = 3
+FIELD_FAULT = ("nerf.mlp_coarse.Dense_0.weight", (0, 0))
+ATTN_FAULT = ("policy.self_attn_2.MHAttention_0.to_out.weight", (0, 0))
+
 
 
 def fail(msg):
@@ -2157,6 +2193,90 @@ def replay_phase(torch, dev, card):
         fail(f"replay: the frame check does not see the planted wrong pack: {fault_check}")
 
 
+def featurenerf_first_step_check(torch, dev, cfg, sc, sd0, src_ord, line="featurenerf_grad"):
+    """Phase 9's rule for the first FeatureNeRF step (FeatureNerfConfig
+    `cfg`) from the weights `sd0` on the scene `sc` (its teacher features
+    dumped) with `src_ord` as source views: the card (deterministic
+    algorithms: bilinear_sample_2d's backward is an accumulating index_put_)
+    against the CPU, same weights and draws, losses within LOSS_TOL and
+    every gradient within GRAD_TOL of its tensor's largest |g|; a second
+    card step gives the repeat gap; two planted faults (the view combine
+    taken as max, uv with x and y swapped) must each fail the check.
+    Returns the line's fields; fails naming `line`."""
+    import numpy as np
+
+    from real_robot_nerf_actor_tpu_torch.models import pixelnerf
+    from real_robot_nerf_actor_tpu_torch.train.featurenerf import FeatureNerfTrainer
+
+    nv, h, w = sc.images.shape[:3]
+    host = {"images": sc.images, "poses": sc.poses, "focal": np.float32(sc.focal),
+            "features": sc.features, "src_ord": np.asarray(src_ord)}
+    g = torch.Generator().manual_seed(2)
+    r, rc = cfg.ray_batch_size, cfg.renderer
+    nf = rc.n_fine - rc.n_fine_depth
+    draws = {"v": torch.randint(0, nv, (r,), generator=g),
+             "y": torch.randint(0, h, (r,), generator=g),
+             "x": torch.randint(0, w, (r,), generator=g)}
+    render_draws = {"coarse_u": torch.rand(r, rc.n_coarse, generator=g),
+                    "fine_u": torch.rand(r, nf, generator=g),
+                    "fine_jitter": torch.rand(r, nf, generator=g),
+                    "fine_depth_eps": torch.randn(r, rc.n_fine_depth, generator=g)}
+    sample = pixelnerf.bilinear_sample_2d
+
+    def first_step(device, fault=None):
+        trd = FeatureNerfTrainer(cfg, device=device)
+        s = trd.init_state(torch.Generator().manual_seed(0))
+        s.module.load_state_dict(sd0)
+        if fault == "combine_max":
+            s.module.mlp.combine_type = "max"
+        if fault == "uv_swapped":
+            pixelnerf.bilinear_sample_2d = lambda feat, uv: sample(feat, uv.flip(-1))
+        try:
+            t = time.perf_counter()
+            s, m = trd.train_step(s, {k_: torch.as_tensor(v, device=device)
+                                      for k_, v in host.items()},
+                                  draws=draws, render_draws=render_draws)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            pixelnerf.bilinear_sample_2d = sample
+        return ({n: p.grad.detach().double().cpu() for n, p in s.module.named_parameters()},
+                {k_: v.item() for k_, v in m.items()}, ms)
+
+    g_cpu, m_cpu, cpu_ms = first_step("cpu")
+
+    def gap(got):
+        """(worst loss gap over LOSS_TOL, worst gradient gap over
+        GRAD_TOL, its tensor): 1 is the bound (update_gaps)."""
+        g = update_gaps(torch, {"losses": got[1], "grads": got[0]},
+                        {"losses": m_cpu, "grads": g_cpu}, 0.0)
+        return g["loss"]["of_tol"], g["grad"]["of_tol"], g["grad"]["name"]
+
+    with deterministic_algorithms(torch) as nondeterministic_ops:
+        card_run = first_step(dev)
+        repeat = first_step(dev)
+        faults = {f: gap(first_step(dev, f)) for f in ("combine_max", "uv_swapped")}
+    loss_gap, grad_gap, worst_t = gap(card_run)
+    repeat_gap = max((card_run[0][n] - repeat[0][n]).abs().max().item() for n in g_cpu)
+    res = dict(src_ord=list(src_ord), loss_card=card_run[1]["loss"],
+               loss_cpu=m_cpu["loss"], loss_gap_of_tol=loss_gap, grad_gap_of_tol=grad_gap,
+               worst_tensor=worst_t, tensors=len(g_cpu), loss_tol=LOSS_TOL,
+               grad_tol=GRAD_TOL, repeat_gap=repeat_gap, card_step_ms=card_run[2],
+               cpu_step_ms=cpu_ms, nondeterministic_ops=nondeterministic_ops,
+               planted={f: {"loss_gap_of_tol": lg, "grad_gap_of_tol": gg, "worst_tensor": n}
+                        for f, (lg, gg, n) in faults.items()})
+    if not (loss_gap <= 1.0 and grad_gap <= 1.0):
+        emit(line, **res)
+        fail(f"{line}: card vs CPU: loss {loss_gap}, gradient {grad_gap} "
+             f"({worst_t}) of tolerance")
+    for f, (lg, gg, _) in faults.items():
+        if lg <= 1.0 and gg <= 1.0:
+            emit(line, **res)
+            fail(f"{line}: planted fault {f} passes the check")
+    return res
+
+
 def featurenerf_phase(torch, np, dev, card):
     """Phase 9: FeatureNeRF pretraining at full width.
 
@@ -2201,7 +2321,6 @@ def featurenerf_phase(torch, np, dev, card):
         SceneDataset, load_scene, synthesize_scene_npz)
     from real_robot_nerf_actor_tpu_torch.eval import novel
     from real_robot_nerf_actor_tpu_torch.eval.metrics import psnr_np, ssim_np
-    from real_robot_nerf_actor_tpu_torch.models import pixelnerf
     from real_robot_nerf_actor_tpu_torch.ops.rays import gen_rays
     from real_robot_nerf_actor_tpu_torch.train.distill2d import dump_teacher_features
     from real_robot_nerf_actor_tpu_torch.train.featurenerf import (
@@ -2339,70 +2458,8 @@ def featurenerf_phase(torch, np, dev, card):
             fail(f"featurenerf: non-finite loss {losses}")
 
         # ------------------------------------------------------- grad check
-        sc = train_ds[0]
-        host = {"images": sc.images, "poses": sc.poses, "focal": np.float32(sc.focal),
-                "features": sc.features, "src_ord": np.asarray(FNERF_SRC3)}
-        g = torch.Generator().manual_seed(2)
-        r, rc = cfg.ray_batch_size, cfg.renderer
-        nf = rc.n_fine - rc.n_fine_depth
-        draws = {"v": torch.randint(0, nv, (r,), generator=g),
-                 "y": torch.randint(0, h, (r,), generator=g),
-                 "x": torch.randint(0, w, (r,), generator=g)}
-        render_draws = {"coarse_u": torch.rand(r, rc.n_coarse, generator=g),
-                        "fine_u": torch.rand(r, nf, generator=g),
-                        "fine_jitter": torch.rand(r, nf, generator=g),
-                        "fine_depth_eps": torch.randn(r, rc.n_fine_depth, generator=g)}
-        sample = pixelnerf.bilinear_sample_2d
-
-        def first_step(device, fault=None):
-            trd = FeatureNerfTrainer(cfg, device=device)
-            s = trd.init_state(torch.Generator().manual_seed(0))
-            s.module.load_state_dict(sd0)
-            if fault == "combine_max":
-                s.module.mlp.combine_type = "max"
-            if fault == "uv_swapped":
-                pixelnerf.bilinear_sample_2d = lambda feat, uv: sample(feat, uv.flip(-1))
-            try:
-                t = time.perf_counter()
-                s, m = trd.train_step(s, {k_: torch.as_tensor(v, device=device)
-                                          for k_, v in host.items()},
-                                      draws=draws, render_draws=render_draws)
-                if device != "cpu":
-                    torch.cuda.synchronize()
-                ms = (time.perf_counter() - t) * 1e3
-            finally:
-                pixelnerf.bilinear_sample_2d = sample
-            return ({n: p.grad.detach().double().cpu() for n, p in s.module.named_parameters()},
-                    {k_: v.item() for k_, v in m.items()}, ms)
-
-        g_cpu, m_cpu, cpu_ms = first_step("cpu")
-
-        def gap(got):
-            """(worst loss gap over LOSS_TOL, worst gradient gap over
-            GRAD_TOL, its tensor): 1 is the bound (update_gaps)."""
-            g = update_gaps(torch, {"losses": got[1], "grads": got[0]},
-                            {"losses": m_cpu, "grads": g_cpu}, 0.0)
-            return g["loss"]["of_tol"], g["grad"]["of_tol"], g["grad"]["name"]
-
-        with deterministic_algorithms(torch) as nondeterministic_ops:
-            card_run = first_step(dev)
-            repeat = first_step(dev)
-            faults = {f: gap(first_step(dev, f)) for f in ("combine_max", "uv_swapped")}
-        loss_gap, grad_gap, worst_t = gap(card_run)
-        repeat_gap = max((card_run[0][n] - repeat[0][n]).abs().max().item() for n in g_cpu)
-        emit("featurenerf_grad", src_ord=list(FNERF_SRC3), loss_card=card_run[1]["loss"],
-             loss_cpu=m_cpu["loss"], loss_gap_of_tol=loss_gap, grad_gap_of_tol=grad_gap,
-             worst_tensor=worst_t, tensors=len(g_cpu), loss_tol=LOSS_TOL,
-             grad_tol=GRAD_TOL, repeat_gap=repeat_gap, card_step_ms=card_run[2],
-             cpu_step_ms=cpu_ms, nondeterministic_ops=nondeterministic_ops,
-             planted={f: {"loss_gap_of_tol": lg, "grad_gap_of_tol": gg, "worst_tensor": n}
-                      for f, (lg, gg, n) in faults.items()}, card=card)
-        if not (loss_gap <= 1.0 and grad_gap <= 1.0):
-            fail(f"featurenerf_grad: card vs CPU: loss {loss_gap}, gradient {grad_gap} "
-                 f"({worst_t}) of tolerance")
-        for f, (lg, gg, _) in faults.items():
-            if lg <= 1.0 and gg <= 1.0:
-                fail(f"featurenerf_grad: planted fault {f} passes the check")
+        res = featurenerf_first_step_check(torch, dev, cfg, train_ds[0], sd0, FNERF_SRC3)
+        emit("featurenerf_grad", **res, card=card)
 
         # ------------------------------------------------------------- eval
         t0 = time.perf_counter()
@@ -4911,6 +4968,474 @@ def checkpoint_phase(torch, np, dev, card):
     emit("checkpoint", phase_wall_s=time.perf_counter() - t_phase, card=card)
 
 
+def sac_on_live_pixels(torch, np, dev):
+    """A few SAC updates on 64 x 64 pixels from a live MuJoCo env (lift,
+    one front camera): SAC_LIVE["transitions"] random transitions into a
+    buffer, then SAC_LIVE["updates"] updates of a batch from it on `dev`."""
+    from real_robot_nerf_actor_tpu_torch.envs import make_env
+    from real_robot_nerf_actor_tpu_torch.rl import ReplayBuffer, SACAgent, SACConfig
+
+    env = make_env(task_name="lift", obs_mode="image", image_size=SAC_LIVE["hw"],
+                   episode_length=50, seed=0)
+    env.action_space.seed(0)
+    obs, _ = env.reset(seed=0)
+    agent = SACAgent(SACConfig(action_dim=4, obs_type="image"), obs, device=dev)
+    rb = ReplayBuffer(SAC_LIVE["transitions"], obs.shape, 4)
+    t0 = time.perf_counter()
+    for i in range(SAC_LIVE["transitions"]):
+        a = env.action_space.sample()
+        nobs, r, term, trunc, _ = env.step(a)
+        rb.add(obs, a, r, nobs, term)
+        obs = env.reset(seed=i + 1)[0] if term or trunc else nobs
+    env_s = time.perf_counter() - t0
+    times, losses = [], []
+    for _ in range(SAC_LIVE["updates"]):
+        t = time.perf_counter()
+        m = agent.update(rb.sample(SAC_LIVE["batch"]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["critic_loss"])
+    if not all(map(math.isfinite, losses)):
+        fail(f"envs_fixture: SAC on live pixels, non-finite critic loss {losses}")
+    return dict(sac_env_s=env_s, sac_update_ms=times, sac_critic_losses=losses,
+                sac_obs_shape=list(obs.shape), sac_batch=SAC_LIVE["batch"])
+
+
+def envs_forensics_phase(torch, np, dev, card):
+    """Phase 15: the MuJoCo xArm suite's data on the card, and the gradient
+    forensics tool at full width.
+
+    a. The fixture tools/gen_data.py wrote with the port's envs
+       (FIXTURE_DIR: 3 lift point-cloud episodes, 2 orbit scenes; its
+       manifest lists the command, each file's digest and the cuts), its
+       digests checked. Where mujoco and gymnasium import, the fixture is
+       written again from the manifest's commands (every digest equal) and
+       SAC takes a few updates on pixels from a live env; else the line
+       says "mujoco": "absent". Then:
+         - envs_episodes: the episodes through EpisodeDataset into
+           PerActTrainer of configs/peract.yaml with conv_backend "pallas".
+           The first step (fp32, the fixture's first keyframe pair, the
+           same weights and draws, deterministic algorithms): on the card
+           the kernel path (conv3d_k3 and its VJP) against the plain conv,
+           each gradient within GRAD_TOL of its scale plus ULP_K times the
+           plain path's own error against the card's float64 step, a
+           conv3d_k3 VJP scaled by 1.01 failing it; the CPU's fp32 step
+           beside them, each side's error against float64 reported (on
+           these sparse clouds a few entries of the card's fp32 gradients,
+           on either conv path, sit far off float64 where the CPU's do not,
+           so phase 10 f's fp32 card-vs-CPU rule does not hold); card
+           against CPU in float64 at F64_VOXELS, every gradient within
+           F64_TOL of its scale, input_preprocess.Conv_0.bias named, and a
+           fault confined to that bias failing it. Then EPISODE_STEPS bf16
+           steps from EpisodeDataset.batches with conv3d_k3 and its VJP
+           launched once each a step;
+         - envs_scenes: the scenes, the seed-drawn ViT-S/8 teacher's
+           features dumped into them, into the FeatureNeRF step of
+           configs/featurenerf.yaml as written (its 0.5-1.8 m band is these
+           orbits'): the first step held to the CPU's by phase 9's rule
+           (featurenerf_first_step_check, its two planted faults).
+    b. forensics: a multi-kitchen dataset (FORENSICS_DATA) and
+       configs/nerfact.yaml in setting b (conv3d_k3 and corner_lerp with
+       their VJPs) trained FORENSICS_STEPS steps through train/nerfact.main
+       --multi-root --ckpt-dir, every step logged, a checkpoint at
+       FORENSICS_MID; tools/grad_forensics.py replay from that checkpoint
+       must give the run's logged metrics bit for bit (both on
+       deterministic algorithms). Two faults, each planted in a copy of the
+       checkpoint: a field weight set to inf (FIELD_FAULT: replay stashes
+       the first --max-stash steps of every step's event and no others;
+       dissect finds loss_render non-finite and the BC terms finite, and
+       each term's own graph leaves only loss_render's gradients
+       non-finite, the planted weight among them) and a latent
+       self-attention weight set to inf (ATTN_FAULT: probe's first row is
+       that block's, mint names its segment first). Step ms of replay and
+       dissect with the launches of conv3d_k3 and corner_lerp (and their
+       VJPs), counters zeroed before each tool and read after; one replayed
+       step under the profiler.
+    The phase states its seconds. Fails on a digest that differs, a first
+    step off its reference, a planted fault that passes, a replay off the run,
+    a fault not located, or launches other than one conv3d_k3 (and VJP)
+    and two corner_lerp (and VJPs) a step."""
+    import glob
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from real_robot_nerf_actor_tpu_torch.convert import final_conv_as_plain
+    from real_robot_nerf_actor_tpu_torch.data.episodes import EpisodeDataset, load_trajectory
+    from real_robot_nerf_actor_tpu_torch.data.kitchen import write_multi_kitchen_dataset
+    from real_robot_nerf_actor_tpu_torch.data.multitask import load_multitask_entries
+    from real_robot_nerf_actor_tpu_torch.data.scene_dataset import load_scene
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_cuda, grid_sample
+    from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
+    from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
+    from real_robot_nerf_actor_tpu_torch.tools import eval_quality, gen_data, grad_forensics
+    from real_robot_nerf_actor_tpu_torch.train import nerfact
+    from real_robot_nerf_actor_tpu_torch.train.distill2d import dump_teacher_features
+    from real_robot_nerf_actor_tpu_torch.train.featurenerf import (
+        FeatureNerfConfig, FeatureNerfTrainer)
+    from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig, PerActTrainer
+    from real_robot_nerf_actor_tpu_torch.utils.config import from_dict, to_dict
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    fixture = Path(__file__).resolve().parent / FIXTURE_DIR
+    manifest = json.loads((fixture / "manifest.json").read_text())
+    digests = {n: gen_data.npz_digest(str(fixture / n)) for n in sorted(manifest["sha256"])}
+    live = {}
+    present = all(importlib.util.find_spec(m) is not None for m in ("mujoco", "gymnasium"))
+    if present:
+        regen = os.path.join(tmp, "regen")
+        for cmd in manifest["commands"]:
+            gen_data.main([*cmd, "--out", regen])
+        live["regenerated"] = {n: gen_data.npz_digest(os.path.join(regen, n))
+                               for n in sorted(os.listdir(regen))}
+        live.update(sac_on_live_pixels(torch, np, dev))
+    emit("envs_fixture", mujoco="present" if present else "absent", files=sorted(digests),
+         bytes=sum(p.stat().st_size for p in fixture.iterdir()),
+         digests_equal=digests == manifest["sha256"], cuts=manifest["cuts"], **live, card=card)
+    if digests != manifest["sha256"]:
+        fail(f"envs_fixture: digests {digests} against the manifest's {manifest['sha256']}")
+    if present and live["regenerated"] != manifest["sha256"]:
+        fail("envs_fixture: the regenerated fixture differs from the manifest")
+
+    # ------------------------------------------- a: episodes -> PerAct step
+    base = from_dict(PerActConfig, PERACT)
+    trajs = [load_trajectory(str(p)) for p in sorted(fixture.glob("ep_*.npz"))]
+    draws = torch.tensor(EPISODE_DRAWS)
+    datasets = {}
+
+    def config(v, dtype, backend):
+        return dataclasses.replace(
+            base, model=dataclasses.replace(base.model, voxel_size=v, compute_dtype=dtype,
+                                            conv_backend=backend),
+            voxelizer=dataclasses.replace(base.voxelizer, voxel_size=v))
+
+    def dataset(v):
+        if v not in datasets:
+            datasets[v] = EpisodeDataset(trajs, base.coord_bounds, voxel_size=v,
+                                         rotation_resolution=base.rotation_resolution,
+                                         max_num_coords=base.voxelizer.max_num_coords)
+        return datasets[v]
+
+    def weights(v):
+        return PerActTrainer(config(v, "float32", "pallas"), device="cpu").init_state(
+            torch.Generator().manual_seed(0)).module.state_dict()
+
+    vjp = conv3d_cuda.conv3d_k3_vjp
+
+    def scaled_vjp(*args, **kw):
+        return tuple(None if t is None else t * 1.01 for t in vjp(*args, **kw))
+
+    def first_step(device, dtype, backend, v, sd, fault=None):
+        """The first step's gradients (float64, on the host, in the plain
+        conv's names) and loss from the weights `sd` on the fixture's first
+        keyframe pair, on deterministic algorithms."""
+        tr = PerActTrainer(config(v, dtype, backend), device=device)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        state.module.load_state_dict(sd if backend == "pallas" else final_conv_as_plain(sd))
+        wide = dtype == "float64"
+        if wide:
+            state.module.double()
+        batch = {k: torch.as_tensor(a[None], device=device) for k, a in dataset(v).get(0).items()}
+        if wide:
+            batch = {k: t.double() if t.is_floating_point() else t for k, t in batch.items()}
+        if fault == "bias_scaled":
+            state.module.input_preprocess.Conv_0.bias.register_hook(
+                lambda g: g * (1.0 + BIAS_FAULT))
+        if fault == "vjp_scaled":
+            conv3d_cuda.conv3d_k3_vjp = scaled_vjp
+        try:
+            with deterministic_algorithms(torch):
+                state, m = tr.train_step(state, batch,
+                                         draws=draws.to(device, batch["points"].dtype))
+        finally:
+            conv3d_cuda.conv3d_k3_vjp = vjp
+        grads = {n: q.grad.detach().double().cpu() for n, q in state.module.named_parameters()}
+        return (final_conv_as_plain(grads) if backend == "pallas" else grads), m["loss"].item()
+
+    def gaps(got, want, bound):
+        """{tensor: largest |got - want| over bound(tensor)}, the invariant bias out."""
+        return {n: ((got[n] - w).abs().max() / bound(n)).item() for n, w in want.items()
+                if not n.endswith(INVARIANT)}
+
+    def worst(d):
+        n = max(d, key=d.get)
+        return {"of_tol": d[n], "name": n}
+
+    # the kernels against the plain conv at full size, on the card: each
+    # gradient within GRAD_TOL of its scale plus ULP_K times the plain
+    # path's own fp32 error against the float64 step
+    v = base.model.voxel_size
+    sd = weights(v)
+    t0 = time.perf_counter()
+    g64, loss64 = first_step(dev, "float64", "conv2d", v, sd)
+    gk, loss_k = first_step(dev, "float32", "pallas", v, sd)
+    gp, loss_p = first_step(dev, "float32", "conv2d", v, sd)
+    gf, _ = first_step(dev, "float32", "pallas", v, sd, "vjp_scaled")
+
+    def kernel_bound(n):
+        return (GRAD_TOL * gp[n].abs().max() + ULP_K * (gp[n] - g64[n]).abs().max() + 1e-30)
+
+    kernel = worst(gaps(gk, gp, kernel_bound))
+    planted = worst(gaps(gf, gp, kernel_bound))
+    card_s = time.perf_counter() - t0
+    # the CPU's fp32 step beside them, against the same float64 step: on
+    # these sparse clouds a few entries of the card's fp32 gradients (either
+    # conv path) sit far off float64 where the CPU's do not, so phase 10 f's
+    # card-vs-CPU rule in fp32 does not hold here; card and CPU are held in
+    # float64 instead (below)
+    t0 = time.perf_counter()
+    g_cpu, loss_c = first_step(cpu, "float32", "pallas", v, sd)
+    cpu32_s = time.perf_counter() - t0
+
+    def of_scale(g):
+        return worst(gaps(g, g64, lambda n: g64[n].abs().max() + 1e-300))
+
+    fp32_errors = {"card_kernel": of_scale(gk), "card_plain": of_scale(gp), "cpu": of_scale(g_cpu),
+                   "card_vs_cpu_of_grad_tol": worst(gaps(
+                       gk, g_cpu, lambda n: GRAD_TOL * g_cpu[n].abs().max() + 1e-30))}
+    n = fp32_errors["card_kernel"]["name"]    # the CPU's error on the card's worst tensor
+    fp32_errors["cpu_on_that_tensor"] = ((g_cpu[n] - g64[n]).abs().max()
+                                         / g64[n].abs().max()).item()
+    # float64, card against CPU, at F64_VOXELS: every gradient (the input
+    # conv's bias among them) within F64_TOL of its scale; a fault confined
+    # to that bias must fail
+    sd_small = weights(F64_VOXELS)
+    t0 = time.perf_counter()
+    want64, want_loss = first_step(cpu, "float64", "conv2d", F64_VOXELS, sd_small)
+    cpu64_s = time.perf_counter() - t0
+    got64, got_loss = first_step(dev, "float64", "conv2d", F64_VOXELS, sd_small)
+    bad64, _ = first_step(dev, "float64", "conv2d", F64_VOXELS, sd_small, "bias_scaled")
+
+    def f64_bound(n):
+        return F64_TOL * want64[n].abs().max() + 1e-300
+
+    f64 = gaps(got64, want64, f64_bound)
+    f64_fault = gaps(bad64, want64, f64_bound)
+    bias = "input_preprocess.Conv_0.bias"
+    float64 = {"voxel_size": F64_VOXELS, "worst": worst(f64), "input_conv_bias": f64[bias],
+               "loss_gap": abs(got_loss - want_loss) / (F64_TOL * abs(want_loss)),
+               "planted_bias_scaled": {"input_conv_bias": f64_fault[bias],
+                                       "worst": worst(f64_fault)}, "cpu_reference_s": cpu64_s}
+    # the bf16 kernel step through EpisodeDataset.batches, counters zeroed first
+    tr = PerActTrainer(config(v, base.model.compute_dtype, "pallas"), device=dev)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    batches = dataset(v).batches(batch_size=1, seed=0, device=dev)
+    losses, times = [], []
+    conv3d_k3.launches = conv3d_k3.wgmma_launches = conv3d_k3.vjp_calls = 0
+    for _ in range(EPISODE_STEPS):
+        t = time.perf_counter()
+        _, m = tr.train_step(state, next(batches), draws=draws.to(dev))
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {"conv3d_k3": conv3d_k3.launches, "conv3d_k3_wgmma": conv3d_k3.wgmma_launches,
+                "conv3d_k3_vjp": conv3d_k3.vjp_calls}
+    emit("envs_episodes", episodes=len(trajs), keyframe_pairs=len(dataset(v)),
+         points_per_cloud=int(trajs[0].observations[0]["points"].shape[0]),
+         compute_dtype=base.model.compute_dtype, conv_backend="pallas", steps=EPISODE_STEPS,
+         step_ms=times, losses=losses, launches=launches,
+         kernel_vs_plain=kernel, planted_vjp_scaled=planted,
+         losses_first_step={"float64": loss64, "kernel": loss_k, "plain": loss_p, "cpu": loss_c},
+         fp32_errors_of_float64_scale=fp32_errors, float64=float64, f64_tol=F64_TOL,
+         card_check_s=card_s, cpu_fp32_s=cpu32_s, card=card)
+    want = dict.fromkeys(launches, EPISODE_STEPS)
+    if launches != want:
+        fail(f"envs_episodes: launches {launches} over {EPISODE_STEPS} steps, want {want}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"envs_episodes: non-finite loss {losses}")
+    if not kernel["of_tol"] <= 1.0 or not planted["of_tol"] > 1.0:
+        fail(f"envs_episodes: kernels against the plain conv {kernel}, planted {planted}")
+    if not (float64["worst"]["of_tol"] <= 1.0 and float64["loss_gap"] <= 1.0):
+        fail(f"envs_episodes: float64 card against CPU {float64}")
+    if not f64_fault[bias] > 1.0:
+        fail(f"envs_episodes: the float64 check does not see the planted bias fault {f64_fault}")
+    del tr, state
+
+    # --------------------------------------- a: scenes -> FeatureNeRF step
+    scenes = os.path.join(tmp, "scenes")
+    os.makedirs(scenes)
+    for p in sorted(fixture.glob("scene_*.npz")):
+        shutil.copy(p, scenes)
+    t0 = time.perf_counter()
+    dump_teacher_features(scenes, device=dev, **FNERF_TEACHER)
+    dump_s = time.perf_counter() - t0
+    sc = load_scene(sorted(glob.glob(os.path.join(scenes, "*.npz")))[0])
+    fcfg = from_dict(FeatureNerfConfig, FEATURENERF)
+    sd0 = FeatureNerfTrainer(fcfg, device="cpu").init_state(
+        torch.Generator().manual_seed(0)).module.state_dict()
+    res = featurenerf_first_step_check(torch, dev, fcfg, sc, sd0, FNERF_SRC3,
+                                       line="envs_scenes")
+    emit("envs_scenes", scenes=len(os.listdir(scenes)), views=int(sc.images.shape[0]),
+         hw=list(sc.images.shape[1:3]), features=list(sc.features.shape),
+         z_band=[fcfg.z_near, fcfg.z_far], dump_s=dump_s, **res, card=card)
+
+    # ------------------------------------------------- b: grad_forensics
+    data = os.path.join(tmp, "multi")
+    t0 = time.perf_counter()
+    write_multi_kitchen_dataset(data, device=dev, **FORENSICS_DATA)
+    write_s = time.perf_counter() - t0
+    ncfg = setting_b()
+    ncfg = dataclasses.replace(ncfg, peract=dataclasses.replace(ncfg.peract, train=dataclasses.replace(
+        ncfg.peract.train, num_steps=FORENSICS_STEPS, ckpt_every=FORENSICS_MID, log_every=1,
+        eval_every=10 ** 9)))
+    cfg_path = os.path.join(tmp, "nerfact_b.json")
+    with open(cfg_path, "w") as f:
+        json.dump(to_dict(ncfg), f)
+    ckpt, log = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+    tool = ["--config", cfg_path, "--multi-root", data, "--device", str(dev)]
+    counters = {"conv3d_k3": (conv3d_k3, "wgmma_launches"),
+                "conv3d_k3_vjp": (conv3d_k3, "vjp_calls"),
+                "corner_lerp": (corner_lerp, "cuda_launches"),
+                "corner_lerp_vjp": (corner_lerp, "vjp_calls")}
+    per_step = {"conv3d_k3": 1, "conv3d_k3_vjp": 1, "corner_lerp": 2, "corner_lerp_vjp": 2}
+
+    def zero():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    step_ms = []
+    train_step = nerfact.NerfActTrainer.train_step
+
+    def timed_step(self, *args, **kw):
+        t = time.perf_counter()
+        out = train_step(self, *args, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def plant(name, fault):
+        """A copy of the midway checkpoint with `fault` (name, index) set to inf."""
+        d = os.path.join(tmp, f"ckpt_{name}")
+        os.makedirs(d)
+        ck = torch.load(os.path.join(ckpt, f"ckpt_{FORENSICS_MID}.pt"), weights_only=True)
+        ck["params"][fault[0]][fault[1]] = float("inf")
+        torch.save(ck, os.path.join(d, f"ckpt_{FORENSICS_MID}.pt"))
+        return d
+
+    lerp_backend = grid_sample.FUSED_LERP_BACKEND
+    grid_sample.FUSED_LERP_BACKEND = "pallas"
+    nerfact.NerfActTrainer.train_step = timed_step
+    try:
+        with deterministic_algorithms(torch) as nondeterministic_ops:
+            zero()
+            t0 = time.perf_counter()
+            nerfact.main(tool + ["--steps", str(FORENSICS_STEPS), "--ckpt-dir", ckpt,
+                                 "--log-dir", log, "--no-resume"])
+            train_s = time.perf_counter() - t0
+            run_launches, run_ms = read(), step_ms[:]
+            del step_ms[:]
+            zero()
+            t0 = time.perf_counter()
+            rec = grad_forensics.main(tool + [
+                "--mode", "replay", "--ckpt-dir", ckpt, "--from-step", str(FORENSICS_MID),
+                "--replay-steps", str(FORENSICS_STEPS - FORENSICS_MID),
+                "--out", os.path.join(tmp, "replay")])
+            replay_s = time.perf_counter() - t0
+            replay_launches, replay_ms = read(), step_ms[:]
+            del step_ms[:]
+            # one replayed step under the profiler: the kernels by name
+            tr, state = eval_quality.restore_joint(ncfg, ckpt, dev)
+            batch = next(tr.multi_replay_data(load_multitask_entries(data), 1))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                train_step(tr, state, batch, torch.Generator().manual_seed(0))
+                torch.cuda.synchronize()
+            profiled = kernel_counts(prof)
+            del tr, state, batch, prof
+            # fault 1: a field weight
+            rec1 = grad_forensics.main(tool + [
+                "--mode", "replay", "--ckpt-dir", plant("field", FIELD_FAULT), "--replay-steps",
+                str(FORENSICS_STEPS - FORENSICS_MID), "--max-stash", "2",
+                "--out", os.path.join(tmp, "field")])
+            del step_ms[:]
+            zero()
+            t0 = time.perf_counter()
+            dis = grad_forensics.main(tool + ["--mode", "dissect", "--stash", rec1["stashes"][0]])
+            dissect_s = time.perf_counter() - t0
+            dissect_launches = read()
+            # fault 2: a latent self-attention weight
+            rec2 = grad_forensics.main(tool + [
+                "--mode", "replay", "--ckpt-dir", plant("attention", ATTN_FAULT),
+                "--replay-steps", "1", "--max-stash", "1", "--out", os.path.join(tmp, "attn")])
+            t0 = time.perf_counter()
+            rows = grad_forensics.main(tool + ["--mode", "probe", "--stash", rec2["stashes"][0]])
+            probe_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            minted = grad_forensics.main(tool + ["--mode", "mint", "--stash",
+                                                 rec2["stashes"][0]])
+            mint_s = time.perf_counter() - t0
+    finally:
+        nerfact.NerfActTrainer.train_step = train_step
+        grid_sample.FUSED_LERP_BACKEND = lerp_backend
+
+    logged = {}
+    with open(os.path.join(log, "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["category"] == "train":
+                logged[r["step"]] = r
+    diffs = {m["step"]: sorted(k for k in m if k != "step" and m[k] != logged[m["step"]].get(k))
+             for m in rec["metrics"]}
+    replayed = FORENSICS_STEPS - FORENSICS_MID
+    emit("forensics", data=FORENSICS_DATA, steps=FORENSICS_STEPS, checkpoint=FORENSICS_MID,
+         write_s=write_s, train_s=train_s, run_step_ms=run_ms, run_launches=run_launches,
+         replay_s=replay_s, replay_step_ms=replay_ms[1:], draw_record_step_ms=replay_ms[0],
+         replay_launches=replay_launches, replay_steps_run=replayed + 1,
+         replay_losses=[m["loss_total"] for m in rec["metrics"]],
+         run_losses=[logged[m["step"]]["loss_total"] for m in rec["metrics"]],
+         replay_diff_keys=diffs, profiled_replay_step=profiled,
+         nondeterministic_ops=nondeterministic_ops, card=card)
+    if any(diffs.values()) or len(rec["metrics"]) != replayed:
+        fail(f"forensics: the replay is not the run: {diffs}")
+    for name, got, n in (("run", run_launches, FORENSICS_STEPS),
+                         ("replay", replay_launches, replayed + 1)):
+        want = {k: v * n for k, v in per_step.items()}
+        if got != want:
+            fail(f"forensics: {name} launches {got}, want {want}")
+    if profiled["conv3d_k3"] != 1 or profiled["corner_lerp"] != 2:
+        fail(f"forensics: the profiled step's kernels {profiled}")
+
+    terms = dis["terms"]
+    alone = {t: [r[0] for r in rows_] for t, rows_ in dis["nonfinite_alone"].items()}
+    emit("forensics_field_fault", fault=list(FIELD_FAULT), events=rec1["events"],
+         stashes=[os.path.basename(p) for p in rec1["stashes"]], terms=terms,
+         probes=dis["probes"], nonfinite_leaves={t: len(r) for t, r in dis["nonfinite"].items()},
+         nonfinite_alone={t: len(r) for t, r in alone.items()},
+         dissect_s=dissect_s, dissect_launches=dissect_launches, card=card)
+    want_events = list(range(FORENSICS_MID, FORENSICS_STEPS))
+    if rec1["events"] != want_events or [os.path.basename(p) for p in rec1["stashes"]] != [
+            f"stash_step{s}.npz" for s in want_events[:2]]:
+        fail(f"forensics: field fault events {rec1['events']} stashes {rec1['stashes']}")
+    bc = ("loss_trans", "loss_rot_grip", "loss_trans_aux")
+    if math.isfinite(terms["loss_render"]) or not all(math.isfinite(terms[t]) for t in bc):
+        fail(f"forensics: field fault terms {terms}")
+    if set(alone) != {"loss_render"} or FIELD_FAULT[0] not in alone["loss_render"]:
+        fail(f"forensics: the terms' own graphs' non-finite leaves {alone}")
+
+    block = ATTN_FAULT[0].split(".")[1]
+    emit("forensics_attention_fault", fault=list(ATTN_FAULT), events=rec2["events"],
+         probe_first=rows[:3], probe_nonfinite=sum(r["bad"] > 0 for r in rows),
+         probe_rows=len(rows), probe_s=probe_s, mint=minted["rows"],
+         mint_first_nonfinite=minted["first_nonfinite"], mint_s=mint_s, card=card)
+    if not (rec2["events"] == [FORENSICS_MID] and rows[0]["bad"] > 0
+            and rows[0]["name"].startswith(block)):
+        fail(f"forensics: probe's first row {rows[0]}, want {block}'s")
+    if minted["first_nonfinite"] != f"{block}(x)":
+        fail(f"forensics: mint named {minted['first_nonfinite']}, want {block}(x)")
+    tmp_dir.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("envs_forensics", seconds=time.perf_counter() - t_phase, card=card)
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "real_robot_nerf_actor_tpu_torch" / "csrc").is_dir():
@@ -5318,6 +5843,9 @@ def main():
 
     # ------------------------------------------------------- 14. checkpoint
     checkpoint_phase(torch, np, dev, card)
+
+    # --------------------------------------------------- 15. envs_forensics
+    envs_forensics_phase(torch, np, dev, card)
 
     # ------------------------------------------------------ summary
     info = {

@@ -44,6 +44,12 @@ from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import spatial_softmax_3d_pa
 _LN_EPS = 1e-6   # flax nn.LayerNorm's default
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or wider: the casts the JAX model makes to fp32 leave a
+    float64 network (compute_dtype "float64", weights .double()) in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 @dataclasses.dataclass(frozen=True)
 class PerceiverConfig:
     """Same fields and meanings as the JAX PerceiverConfig, so one YAML
@@ -72,7 +78,7 @@ class PerceiverConfig:
     input_encoder: str = "conv1"     # "conv1" (peract) | "unet" (nerfact)
     return_voxel_feat: bool = False
     dropout_rate: float = 0.0
-    compute_dtype: str = "float32"   # "float32" | "bfloat16"
+    compute_dtype: str = "float32"   # "float32" | "bfloat16" | "float64"
     use_flash_attention: bool = False
     upsample_mode: str = "transpose"
     conv_padding: str = "zeros"
@@ -92,8 +98,8 @@ class PerceiverConfig:
 
     @property
     def dtype(self) -> torch.dtype:
-        return {"float32": torch.float32,
-                "bfloat16": torch.bfloat16}[self.compute_dtype]
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float64": torch.float64}[self.compute_dtype]
 
 
 class MHAttention(nn.Module):
@@ -130,14 +136,14 @@ class MHAttention(nn.Module):
             out = q.new_empty((x.shape[0], x.shape[1], heads * self.dim_head))
             flash_attention(q, k, v, out=split_heads(out))
         elif self.dropout_rate > 0 and not deterministic:
-            s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * self.dim_head ** -0.5
+            s = torch.einsum("bhid,bhjd->bhij", widen(q), widen(k)) * self.dim_head ** -0.5
             p = F.dropout(torch.softmax(s, dim=-1).to(v.dtype), self.dropout_rate)
             out = torch.einsum("bhij,bhjd->bhid", p, v)
             out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
         else:
             out = reference_attention(q, k, v)
             out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
-        return self.to_out(out).float()
+        return widen(self.to_out(out))
 
 
 class GEGLUFeedForward(nn.Module):
@@ -148,7 +154,7 @@ class GEGLUFeedForward(nn.Module):
 
     def forward(self, x):
         h, gates = self.Dense_0(x).chunk(2, dim=-1)
-        return self.Dense_1(h * F.gelu(gates, approximate="tanh")).float()
+        return widen(self.Dense_1(h * F.gelu(gates, approximate="tanh")))
 
 
 class PreNormAttn(nn.Module):
@@ -184,6 +190,7 @@ class PerceiverIO(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         dt = cfg.dtype
+        head = torch.promote_types(dt, torch.float32)   # the fp32 heads; float64 in float64
         s = cfg.spatial_size
         seq_dim = cfg.input_dim_before_seq
         if c.input_encoder == "unet":
@@ -195,7 +202,7 @@ class PerceiverIO(nn.Module):
         self.patchify = PatchifyConv3D(c.im_channels, c.im_channels,
                                        c.voxel_patch_size, c.activation, dtype=dt)
         self.proprio_preprocess = DenseBlock(c.low_dim_size, c.im_channels,
-                                             c.activation)
+                                             c.activation, dtype=head)
         self.lang_preprocess = Dense(c.lang_emb_dim, seq_dim)
         self.pos_encoding = nn.Parameter(
             torch.empty(1, c.lang_max_seq_len + s ** 3, seq_dim))
@@ -223,11 +230,11 @@ class PerceiverIO(nn.Module):
         self.trans_decoder = ContractFirstConv3D(c.im_channels, 1, 3, None, dtype=dt)
         # [keypoints (3C) + max (C)] of d0, dec and u
         feat_dim = 4 * c.im_channels + 4 * seq_dim + 4 * c.im_channels
-        self.dense0 = DenseBlock(feat_dim, 256, c.activation)
-        self.dense1 = DenseBlock(256, c.final_dim, c.activation)
+        self.dense0 = DenseBlock(feat_dim, 256, c.activation, dtype=head)
+        self.dense1 = DenseBlock(256, c.final_dim, c.activation, dtype=head)
         self.rot_grip_collision_ff = DenseBlock(
             c.final_dim, c.num_rotation_classes * 3 + c.num_grip_classes
-            + c.num_collision_classes, None)
+            + c.num_collision_classes, None, dtype=head)
         if c.aux_trans_head:
             self.aux_trans_decoder = Dense(seq_dim, 1)
 
@@ -295,10 +302,10 @@ class PerceiverIO(nn.Module):
         u0 = self.up0(dec)
         dt_cat = torch.promote_types(d0.dtype, u0.dtype)
         u = self.final(torch.cat([d0.to(dt_cat), u0.to(dt_cat)], dim=-1))
-        q_trans = self.trans_decoder(u)[..., 0].float()
+        q_trans = widen(self.trans_decoder(u)[..., 0])
         feats.extend([self._ssm(u), torch.amax(u, dim=(1, 2, 3))])
 
-        h = self.dense0(torch.cat([f.float() for f in feats], dim=-1))
+        h = self.dense0(torch.cat([widen(f) for f in feats], dim=-1))
         h = self.dense1(h)
         rgc = self.rot_grip_collision_ff(h)
         q_rot_grip = rgc[:, : -c.num_collision_classes]
@@ -308,5 +315,5 @@ class PerceiverIO(nn.Module):
         if c.return_voxel_feat:
             outputs.append(d0)
         if c.aux_trans_head:
-            outputs.append(self.aux_trans_decoder(dec.float())[..., 0].reshape(b, -1))
+            outputs.append(self.aux_trans_decoder(widen(dec))[..., 0].reshape(b, -1))
         return tuple(outputs)

@@ -12,13 +12,13 @@ from __future__ import annotations
 import torch
 
 
-def _pos_grids(d: int, h: int, w: int, device):
+def _pos_grids(d: int, h: int, w: int, device, dtype=torch.float32):
     """The reference's np.meshgrid grids, built on `device` in fp64 (as
-    numpy builds them) and rounded to fp32: a grid built on the host would
-    be made and copied to the device on every call."""
+    numpy builds them) and rounded to `dtype`: a grid built on the host
+    would be made and copied to the device on every call."""
     lin = [torch.linspace(-1.0, 1.0, n, dtype=torch.float64, device=device)
            for n in (d, h, w)]
-    return tuple(p.reshape(-1).to(torch.float32)
+    return tuple(p.reshape(-1).to(dtype)
                  for p in torch.meshgrid(*lin, indexing="xy"))
 
 
@@ -27,13 +27,14 @@ def spatial_softmax_3d(feature: torch.Tensor,
     """feature: (B, D, H, W, C) channel-last -> (B, 3C) expected keypoints.
 
     As in JAX, the max is subtracted in the feature's dtype and the
-    difference is then taken to fp32 for the exp.
+    difference is then taken to fp32 (float64 stays float64) for the exp.
     """
     b, d, h, w, c = feature.shape
-    px, py, pz = _pos_grids(d, h, w, feature.device)
+    wide = torch.promote_types(feature.dtype, torch.float32)
+    px, py, pz = _pos_grids(d, h, w, feature.device, wide)
     basis = torch.stack([torch.ones_like(px), px, py, pz], dim=-1)   # (DHW, 4)
     m = torch.amax(feature, dim=(1, 2, 3), keepdim=True)
-    e = torch.exp((feature - m).to(torch.float32) / temperature)
+    e = torch.exp((feature - m).to(wide) / temperature)
     sums = torch.einsum("bnc,nk->bck", e.reshape(b, d * h * w, c), basis)
     kp = sums[..., 1:] / sums[..., :1]
     return kp.reshape(b, c * 3)

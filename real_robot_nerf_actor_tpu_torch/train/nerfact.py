@@ -132,27 +132,19 @@ class NerfActTrainer(PerActTrainer):
             vox = voxelize(pts, cols, self.bounds, self.cfg.voxelizer, valid=valid)
             return state.module["policy"](vox, proprio, lang)
 
-    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None,
-                   draws: Optional[torch.Tensor] = None,
-                   ray_idx: Optional[torch.Tensor] = None,
-                   render_draws: Optional[Mapping[str, torch.Tensor]] = None
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One optimizer step on a PerAct batch (see PerActTrainer.train_step)
-        that also carries gt_rgb (B,H,W,3), gt_pose (B,4,4), focal (B,) and
-        optionally gt_embed (B,H,W,D), gt_depth (B,H,W). The rendering loss
-        takes sample 0. draws: the SE(3) uniforms (B, 3); ray_idx and
-        render_draws: `rendering_loss`'s draws; each drawn from `generator`
-        when absent. Returns the state and the metrics (device tensors),
-        `loss_total` among them. The profiler sees four ranges:
-        train_step.forward (aug, voxelization, policy, BC losses), .render,
-        .backward and .optimizer."""
+    def losses(self, state: TrainState, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[torch.Tensor] = None,
+               ray_idx: Optional[torch.Tensor] = None,
+               render_draws: Optional[Mapping[str, torch.Tensor]] = None):
+        """The step's forward: (total loss, metrics, the policy's outputs),
+        the metrics still in the graph (see train_step for the arguments).
+        The profiler sees train_step.forward (aug, voxelization, policy, BC
+        losses) and .render."""
         jc = self.jcfg
-        net = state.module
         with record_function("train_step.forward"):
-            net.zero_grad(set_to_none=True)
-            out, aug, bc_total, metrics = self._forward_bc(net["policy"], batch, generator,
-                                                           draws)
+            out, aug, bc_total, metrics = self._forward_bc(state.module["policy"], batch,
+                                                           generator, draws)
             gt_pose = batch["gt_pose"]
             if aug is not None:
                 # the camera follows the scene's shift, so its pixels stay aligned
@@ -173,6 +165,25 @@ class NerfActTrainer(PerActTrainer):
             metrics.update(rmetrics)
             total = jc.lambda_bc * bc_total + jc.lambda_nerf * render_loss
             metrics["loss_total"] = total
+        return total, metrics, out
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[torch.Tensor] = None,
+                   ray_idx: Optional[torch.Tensor] = None,
+                   render_draws: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer step on a PerAct batch (see PerActTrainer.train_step)
+        that also carries gt_rgb (B,H,W,3), gt_pose (B,4,4), focal (B,) and
+        optionally gt_embed (B,H,W,D), gt_depth (B,H,W). The rendering loss
+        takes sample 0. draws: the SE(3) uniforms (B, 3); ray_idx and
+        render_draws: `rendering_loss`'s draws; each drawn from `generator`
+        when absent. Returns the state and the metrics (device tensors),
+        `loss_total` among them. The profiler sees four ranges:
+        train_step.forward (aug, voxelization, policy, BC losses), .render,
+        .backward and .optimizer."""
+        state.module.zero_grad(set_to_none=True)
+        total, metrics, _ = self.losses(state, batch, generator, draws, ray_idx, render_draws)
         with record_function("train_step.backward"):
             total.backward()
         with record_function("train_step.optimizer"):

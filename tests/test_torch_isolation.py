@@ -735,3 +735,86 @@ def test_profile_policy_runs_serve_yaml():
     total, by_class, by_name = profile_policy.aggregate_trace(f.name)
     assert total == 1.25 and by_class == {"flash_attention": 0.2, "gemm": 1.0, "copy": 0.05}
     assert set(by_name) == {"flash_attention_wgmma_kernel", "sm90_xmma_gemm_bf16", "Memcpy HtoD"}
+
+
+def test_package_imports_without_mujoco_or_gymnasium():
+    """In a process where mujoco, gymnasium, jax, flax, optax and the JAX
+    package cannot be imported: every module of the port but `envs/`
+    imports (the env half of data/demos.py imports MuJoCo when called,
+    and then raises ImportError naming it), and so does chip_smoke.py."""
+    import subprocess
+    import sys
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN + ('mujoco', 'gymnasium')!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import real_robot_nerf_actor_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')\n"
+        "         if '.envs' not in m.name]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from real_robot_nerf_actor_tpu_torch.data import demos\n"
+        "try:\n"
+        "    demos.generate_nerf_scene('lift', n_views=1, image_size=4)\n"
+        "except ImportError as e:\n"
+        "    assert 'mujoco' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('generate_nerf_scene ran without mujoco')\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[1])\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code, str(REPO / "chip_smoke.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) > 100
+
+
+def test_env_modules_import_nothing_of_jax():
+    """The envs, the env half of data/demos.py and the new tools keep their
+    own copies of the MJCF, the tasks and the expert: no import of jax,
+    flax or the JAX package, even of its env modules (which import no
+    JAX)."""
+    files = sorted((PORT / "envs").glob("*.py")) + [
+        PORT / "data" / "demos.py", PORT / "tools" / "gen_data.py",
+        PORT / "tools" / "train_rl.py", PORT / "tools" / "grad_forensics.py"]
+    assert len(files) == 9
+    for f in files:
+        for name in _imports(f):
+            assert name.split(".")[0] not in FORBIDDEN, f"{f.relative_to(REPO)} imports {name}"
+
+
+def test_chip_smoke_has_an_envs_forensics_phase():
+    """chip_smoke.py's phase 15 drives the fixture's episodes and scenes and
+    tools/grad_forensics.py at full width with its checks and planted
+    faults; its planted weights are parameters of the joint step."""
+    import dataclasses
+    import importlib.util
+    import inspect
+
+    from real_robot_nerf_actor_tpu_torch.models import PerceiverConfig
+    from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig, NerfActTrainer
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    src = inspect.getsource(cs.envs_forensics_phase)
+    for needle in ("gen_data.npz_digest(", "sac_on_live_pixels(", "EpisodeDataset(",
+                   "final_conv_as_plain(", '"vjp_scaled"', '"bias_scaled"', "F64_VOXELS",
+                   "dump_teacher_features(", "featurenerf_first_step_check(",
+                   "write_multi_kitchen_dataset(", "nerfact.main(", "deterministic_algorithms(",
+                   '"--mode", "replay"', '"dissect"', '"probe"', '"mint"', "kernel_counts(",
+                   "FIELD_FAULT", "ATTN_FAULT", 'mujoco="present" if present else "absent"'):
+        assert needle in src, needle
+    assert "envs_forensics_phase(" in inspect.getsource(cs.main)
+    assert (REPO / cs.FIXTURE_DIR / "manifest.json").is_file()
+    assert cs.FORENSICS_DATA["image_hw"] == (128, 128) and cs.FORENSICS_DATA["d_embed"] == 512
+    assert cs.FORENSICS_MID < cs.FORENSICS_STEPS
+    tr = NerfActTrainer(NerfActConfig(peract=dataclasses.replace(
+        NerfActConfig().peract, model=PerceiverConfig(
+            depth=3, voxel_size=10, num_latents=8, latent_dim=16, input_encoder="unet",
+            return_voxel_feat=True))), device="cpu")
+    sd = tr.init_state(torch.Generator().manual_seed(0)).module.state_dict()
+    for name, index in (cs.FIELD_FAULT, cs.ATTN_FAULT):
+        assert sd[name][index].numel() == 1, name
