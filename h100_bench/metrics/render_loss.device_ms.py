@@ -1,0 +1,6 @@
+"""render_loss.device_ms: device ms a step of the kernels launched inside the program's host
+range `train_step.render`."""
+
+
+def read(ctx):
+    return ctx.range_ms("train_step.render")
