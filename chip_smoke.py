@@ -686,11 +686,11 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
         def expand():
             return ray_expand(tile_rays, z, dims, SERVE_FIELD["coord_bounds"])
 
-        cuda_launches = ray_expand.cuda_launches
+        launched = ray_expand.launches
         got = expand()
         want = ray_expand_plain(tile_rays, z, dims, SERVE_FIELD["coord_bounds"])
         torch.cuda.synchronize()
-        if ray_expand.cuda_launches != cuda_launches + 1:
+        if ray_expand.launches != launched + 1:
             fail(f"ray_expand {pass_}: did not launch csrc/ray_expand.cu")
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
 
@@ -718,11 +718,11 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
 
         # corner_lerp on the gathered rows: one bf16 ulp (<= 2^-7 of each value)
         rows = rows_all[flat.long()]
-        cuda_launches = corner_lerp.cuda_launches
+        launched = corner_lerp.launches
         got = corner_lerp(rows, w8)
         want = corner_lerp_plain(rows, w8).float()
         torch.cuda.synchronize()
-        if corner_lerp.cuda_launches != cuda_launches + 1:
+        if corner_lerp.launches != launched + 1:
             fail(f"corner_lerp {pass_}: did not launch csrc/corner_lerp.cu")
         err = (got.float() - want).abs().max().item()
         if not ((got.float() - want).abs() <= 2 ** -7 * want.abs() + 1e-6).all():
@@ -842,8 +842,7 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
 
     # ---- frames: serve.yaml as written, then gather_fused_mlp = true
     mlp_counters = (rf.fused_resnetfc_int8, rf.fused_gather_resnetfc_int8)
-    cuda_counters = (ray_expand, corner_lerp)
-    counters = cuda_counters + mlp_counters
+    counters = (ray_expand, corner_lerp) + mlp_counters
 
     def frames(rend, seed):
         """FRAME_WARMUP untimed, FRAMES timed frames; the last frame's output,
@@ -856,8 +855,6 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             c.launches = 0
         for c in mlp_counters:
             c.wgmma_launches = 0
-        for c in cuda_counters:
-            c.cuda_launches = 0
         times = []
         for i in range(FRAMES):
             t = time.perf_counter()
@@ -867,7 +864,6 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
             times.append((time.perf_counter() - t) * 1e3)
         launches = {c.__name__: c.launches for c in counters}
         launches.update({f"{c.__name__}_wgmma": c.wgmma_launches for c in mlp_counters})
-        launches.update({f"{c.__name__}_cuda": c.cuda_launches for c in cuda_counters})
         return out, times, launches, torch.cuda.max_memory_allocated() / 2 ** 30
 
     r_gf = make(gather_fused_mlp=True)
@@ -889,14 +885,14 @@ def render_phase(torch, np, dev, card, d0, occupancy, summary, record):
              launches_per_frame=per_frame, peak_mem_gb=peak, card=card)
         # every launch of the path on its CUDA kernel: the MLP's on the wgmma
         # design, ray_expand's and corner_lerp's on csrc/
-        want = {k: (2 * n_tiles if k.removesuffix("_wgmma").removesuffix("_cuda") in on_path
-                    else 0) for k in per_frame}
+        want = {k: (2 * n_tiles if k.removesuffix("_wgmma") in on_path else 0)
+                for k in per_frame}
         if per_frame != want:
             fail(f"render {label}: launches per frame {per_frame}, want {want}")
         for k in on_path:
             if k != "ray_expand" or label == "unfused":
                 summary[k]["launches"] = launches[k + ("_wgmma" if k.startswith("fused")
-                                                       else "_cuda")]
+                                                       else "")]
         for name, x in zip(("rgb", "embed", "depth"), out):
             if not torch.isfinite(x).all():
                 fail(f"render {label}: non-finite {name}")
@@ -1029,8 +1025,8 @@ def proposal_and_quantized_frames(torch, dev, card, make, sd, d0, pose, focal, c
                                                          "fused_gather_resnetfc_int8"))):
         out, times, launches, peak = frames(rend, 100)
         per_frame = {k: v / FRAMES for k, v in launches.items()}
-        want = {k: (n_tiles if k.removesuffix("_wgmma").removesuffix("_cuda") in on_path
-                    else 0) for k in per_frame}
+        want = {k: (n_tiles if k.removesuffix("_wgmma") in on_path else 0)
+                for k in per_frame}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             rend.render_image(d0, pose, focal, generator=cuda_gen(100), occ=occ, plan=plan)
@@ -1615,7 +1611,7 @@ def nerfact_phase(torch, dev, card):
     counters = (("conv3d_k3", conv3d_k3, "launches"), ("conv3d_k3_wgmma", conv3d_k3,
                                                        "wgmma_launches"),
                 ("conv3d_k3_vjp", conv3d_k3, "vjp_calls"),
-                ("corner_lerp", corner_lerp, "cuda_launches"),
+                ("corner_lerp", corner_lerp, "launches"),
                 ("corner_lerp_vjp", corner_lerp, "vjp_calls"))
     runs = {name: dict(fresh(name), times=[], losses=[], peak_gb=0.0,
                        launches=dict.fromkeys((c[0] for c in counters), 0))
@@ -1925,10 +1921,10 @@ def replay_phase(torch, dev, card):
     counters = {"flash_attention": (flash_attention, "wgmma_launches"),
                 "conv3d_k3": (conv3d_k3, "wgmma_launches"),
                 "conv3d_k3_vjp": (conv3d_k3, "vjp_calls"),
-                "spatial_stats_3d": (spatial_stats_3d, "cuda_launches"),
-                "corner_lerp": (corner_lerp, "cuda_launches"),
+                "spatial_stats_3d": (spatial_stats_3d, "launches"),
+                "corner_lerp": (corner_lerp, "launches"),
                 "corner_lerp_vjp": (corner_lerp, "vjp_calls"),
-                "ray_expand": (ray_expand, "cuda_launches"),
+                "ray_expand": (ray_expand, "launches"),
                 "fused_resnetfc_int8": (fused_resnetfc_int8, "wgmma_launches"),
                 "fused_gather_resnetfc_int8": (fused_gather_resnetfc_int8, "wgmma_launches")}
 
@@ -3573,7 +3569,6 @@ def camera_phase(torch, np, dev, card, server_on, server_off):
     for c in counters:
         c.launches = 0
     flash_attention.wgmma_launches = conv3d_k3.wgmma_launches = 0
-    spatial_stats_3d.cuda_launches = 0
     act_ms, packed_on = [], []
     for d in filtered:
         t = time.perf_counter()
@@ -3582,11 +3577,9 @@ def camera_phase(torch, np, dev, card, server_on, server_off):
     n = len(filtered)
     per_step = {c.__name__: c.launches / n for c in counters}
     per_step.update(flash_attention_wgmma=flash_attention.wgmma_launches / n,
-                    conv3d_k3_wgmma=conv3d_k3.wgmma_launches / n,
-                    spatial_stats_3d_cuda=spatial_stats_3d.cuda_launches / n)
+                    conv3d_k3_wgmma=conv3d_k3.wgmma_launches / n)
     want_counts = {"flash_attention": 8, "conv3d_k3": 1, "spatial_stats_3d": 3,
-                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1,
-                   "spatial_stats_3d_cuda": 3}
+                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1}
     if per_step != want_counts:
         fail(f"camera: launches per act step {per_step}, want {want_counts}")
     plain_ms = []
@@ -4112,7 +4105,7 @@ def joint_leg(torch, tr, sd, batch, draws, mesh, tensor_parallel, timed=0, updat
     local = place_batch(batch)
     counters = (("conv3d_k3", conv3d_k3, "wgmma_launches"),
                 ("conv3d_k3_vjp", conv3d_k3, "vjp_calls"),
-                ("corner_lerp", corner_lerp, "cuda_launches"),
+                ("corner_lerp", corner_lerp, "launches"),
                 ("corner_lerp_vjp", corner_lerp, "vjp_calls"))
     for _, obj, attr in counters:
         setattr(obj, attr, 0)
@@ -4348,7 +4341,7 @@ def parallel_rank(rank, world, port, in_path, out_dir):
             net = policy()
             shard_module_(meshes["c"], net, shard_params_rule(meshes["c"], net))
             for obj, attr in ((flash_attention, "wgmma_launches"),
-                              (spatial_stats_3d, "cuda_launches"),
+                              (spatial_stats_3d, "launches"),
                               (conv3d_k3, "wgmma_launches")):
                 setattr(obj, attr, 0)
             torch.cuda.reset_peak_memory_stats()
@@ -4359,7 +4352,7 @@ def parallel_rank(rank, world, port, in_path, out_dir):
                 out=out, s=time.perf_counter() - t,
                 peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                 launches={"flash_attention": flash_attention.wgmma_launches,
-                          "spatial_stats_3d": spatial_stats_3d.cuda_launches,
+                          "spatial_stats_3d": spatial_stats_3d.launches,
                           "conv3d_k3": conv3d_k3.wgmma_launches})
             del net
     torch.cuda.empty_cache()
@@ -4808,12 +4801,12 @@ def checkpoint_phase(torch, np, dev, card):
     with open(cfg_path, "w") as f:
         json.dump(to_dict(cfg), f)
     counters = {"flash_attention": (flash_attention, "wgmma_launches"),
-                "spatial_stats_3d": (spatial_stats_3d, "cuda_launches"),
+                "spatial_stats_3d": (spatial_stats_3d, "launches"),
                 "conv3d_k3": (conv3d_k3, "wgmma_launches"),
                 "conv3d_k3_vjp": (conv3d_k3, "vjp_calls"),
-                "corner_lerp": (corner_lerp, "cuda_launches"),
+                "corner_lerp": (corner_lerp, "launches"),
                 "corner_lerp_vjp": (corner_lerp, "vjp_calls"),
-                "ray_expand": (ray_expand, "cuda_launches"),
+                "ray_expand": (ray_expand, "launches"),
                 # every design: the bf16 variants run the MLP on mma.sync
                 "fused_resnetfc_int8": (fused_resnetfc_int8, "launches"),
                 "fused_gather_resnetfc_int8": (fused_gather_resnetfc_int8, "launches")}
@@ -5290,7 +5283,7 @@ def envs_forensics_phase(torch, np, dev, card):
     tool = ["--config", cfg_path, "--multi-root", data, "--device", str(dev)]
     counters = {"conv3d_k3": (conv3d_k3, "wgmma_launches"),
                 "conv3d_k3_vjp": (conv3d_k3, "vjp_calls"),
-                "corner_lerp": (corner_lerp, "cuda_launches"),
+                "corner_lerp": (corner_lerp, "launches"),
                 "corner_lerp_vjp": (corner_lerp, "vjp_calls")}
     per_step = {"conv3d_k3": 1, "conv3d_k3_vjp": 1, "corner_lerp": 2, "corner_lerp_vjp": 2}
 
@@ -5617,11 +5610,11 @@ def main():
         errs, errs_of_den = {}, {}
         for scale in (0.3, 0.01):
             feat = randn(1, v, v, v, c, dtype=dtype, scale=scale)
-            cuda_launches = spatial_stats_3d.cuda_launches
+            launched = spatial_stats_3d.launches
             got = spatial_stats_3d(feat)
             want = spatial_stats_3d_plain(feat)
             torch.cuda.synchronize()
-            if spatial_stats_3d.cuda_launches != cuda_launches + 1:
+            if spatial_stats_3d.launches != launched + 1:
                 fail(f"spatial_stats_3d {v}^3x{c}: did not launch csrc/spatial_stats.cu")
             den = want[..., :1]
             errs[scale] = (got - want).abs().max().item()
@@ -5707,12 +5700,10 @@ def main():
             for c in counters:
                 c.launches = 0
             flash_attention.wgmma_launches = conv3d_k3.wgmma_launches = 0
-            spatial_stats_3d.cuda_launches = 0
             trace = run_deployment(server, ReplayRobotIO(steps), num_steps=STEPS)
             launches = {c.__name__: c.launches for c in counters}
             launches.update(flash_attention_wgmma=flash_attention.wgmma_launches,
-                            conv3d_k3_wgmma=conv3d_k3.wgmma_launches,
-                            spatial_stats_3d_cuda=spatial_stats_3d.cuda_launches)
+                            conv3d_k3_wgmma=conv3d_k3.wgmma_launches)
         finally:
             server.act = act
         return trace, times, launches
@@ -5724,17 +5715,14 @@ def main():
          setup_s=setup_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          card=card)
     want_counts = {"flash_attention": 8, "conv3d_k3": 1, "spatial_stats_3d": 3,
-                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1,
-                   "spatial_stats_3d_cuda": 3}
+                   "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1}
     if per_step != want_counts:
         fail(f"launches per act step {per_step}, want {want_counts}")
     for name in summary:
         summary[name]["launches"] = launches[name]
-    # the kernels line counts the launches of the wgmma/TMA designs and of
-    # csrc/spatial_stats.cu
+    # the kernels line counts the launches of the wgmma/TMA designs
     summary["flash_attention"]["launches"] = launches["flash_attention_wgmma"]
     summary["conv3d_k3"]["launches"] = launches["conv3d_k3_wgmma"]
-    summary["spatial_stats_3d"]["launches"] = launches["spatial_stats_3d_cuda"]
 
     trace_off, times_off, launches_off = drive(server_off)
     emit("act", path="plain", steps=STEPS, p50_ms=statistics.median(times_off),

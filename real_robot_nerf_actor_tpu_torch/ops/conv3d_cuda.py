@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from real_robot_nerf_actor_tpu_torch.ops import _build
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BRICK = (16, 8, 2)   # output voxels (x, y, z) of one item of the wgmma kernel
@@ -156,7 +157,8 @@ class Conv3dK3(torch.autograd.Function):
     def backward(ctx, g):
         x, kernel = ctx.saved_tensors
         conv3d_k3.vjp_calls += 1
-        return conv3d_k3_vjp(x, kernel, g, ctx.needs_input_grad)
+        with named_scope("backward.conv3d_k3"):
+            return conv3d_k3_vjp(x, kernel, g, ctx.needs_input_grad)
 
 
 def conv3d_k3(x: torch.Tensor, kernel: torch.Tensor,

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
+
 # lerp of the corner-expanded path: "nested" (lerp tree, the 8-gather
 # path's associativity) or "flat" (sum of corner * weight products)
 FUSED_LERP_MODE = "nested"
@@ -107,7 +109,8 @@ class _ExpandCorners(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _fold_corners(g).to(ctx.in_dtype), None
+        with named_scope("backward.expand_corners"):
+            return _fold_corners(g).to(ctx.in_dtype), None
 
 
 def expand_corners_to(grid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -150,19 +153,20 @@ class _FastBwdSample(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (coords,) = ctx.saved_tensors
-        b, d, h, w, c = ctx.grid_shape
-        n = coords.shape[1]
-        cells = (d + 1) * (h + 1) * (w + 1)
-        w8, flat = corner_weights_and_rows(coords, d, h, w)   # (8, B*N), (B*N,)
-        rows = (w8.t()[:, :, None] * g.reshape(b * n, 1, c).float()).reshape(b * n, 8 * c)
-        flat = (flat.reshape(b, n) + torch.arange(b, device=flat.device)[:, None]
-                * cells).reshape(-1)
-        d_exp = torch.zeros((b * cells, 8 * c), dtype=torch.float32, device=g.device)
-        d_exp.index_add_(0, flat, rows)
-        d_grid = _fold_corners(d_exp.reshape(b, d + 1, h + 1, w + 1, 8 * c))
-        d_coords = torch.zeros_like(coords) if ctx.needs_input_grad[1] else None
-        return d_grid.to(ctx.grid_dtype), d_coords
+        with named_scope("backward.grid_sample"):
+            (coords,) = ctx.saved_tensors
+            b, d, h, w, c = ctx.grid_shape
+            n = coords.shape[1]
+            cells = (d + 1) * (h + 1) * (w + 1)
+            w8, flat = corner_weights_and_rows(coords, d, h, w)   # (8, B*N), (B*N,)
+            rows = (w8.t()[:, :, None] * g.reshape(b * n, 1, c).float()).reshape(b * n, 8 * c)
+            flat = (flat.reshape(b, n) + torch.arange(b, device=flat.device)[:, None]
+                    * cells).reshape(-1)
+            d_exp = torch.zeros((b * cells, 8 * c), dtype=torch.float32, device=g.device)
+            d_exp.index_add_(0, flat, rows)
+            d_grid = _fold_corners(d_exp.reshape(b, d + 1, h + 1, w + 1, 8 * c))
+            d_coords = torch.zeros_like(coords) if ctx.needs_input_grad[1] else None
+            return d_grid.to(ctx.grid_dtype), d_coords
 
 
 def grid_sample_3d_fastbwd(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -24,9 +24,8 @@ aligned, take a scalar path (`vector_path` decides). The host path launches
 straight from the wrapper where no gradient is wanted.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
-`corner_lerp_plain`. `corner_lerp.launches` counts calls that launched,
-`cuda_launches` launches of csrc/corner_lerp.cu, `vjp_calls` backward passes
-through `CornerLerp`.
+`corner_lerp_plain`. `corner_lerp.launches` counts launches of
+csrc/corner_lerp.cu, `vjp_calls` backward passes through `CornerLerp`.
 
 Gradient: the CUDA branch is a `torch.autograd.Function` whose backward is
 the JAX package's custom VJP (`lerp_pallas._bwd`) in plain PyTorch:
@@ -38,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from real_robot_nerf_actor_tpu_torch.ops import _build
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,7 +92,6 @@ def _launch(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         int(vector_path(rows)), stream))
     _build.check(lib, code, "corner_lerp")
     corner_lerp.launches += 1
-    corner_lerp.cuda_launches += 1
     return out
 
 
@@ -109,7 +108,8 @@ class CornerLerp(torch.autograd.Function):
     def backward(ctx, g):
         rows, w = ctx.saved_tensors
         corner_lerp.vjp_calls += 1
-        return corner_lerp_vjp(rows, w, g)
+        with named_scope("backward.corner_lerp"):
+            return corner_lerp_vjp(rows, w, g)
 
 
 def corner_lerp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -123,6 +123,5 @@ def corner_lerp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _launch(rows, w)          # nothing to differentiate: no Function
 
 
-corner_lerp.launches = 0        # calls that launched a kernel
-corner_lerp.cuda_launches = 0   # of those, launches of csrc/corner_lerp.cu
-corner_lerp.vjp_calls = 0       # backward passes through CornerLerp (corner_lerp_vjp)
+corner_lerp.launches = 0    # launches of csrc/corner_lerp.cu
+corner_lerp.vjp_calls = 0   # backward passes through CornerLerp (corner_lerp_vjp)

@@ -31,8 +31,8 @@ ops. The host path is short: the constants are computed once per
 device is current.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
-`ray_expand_plain`. `ray_expand.launches` counts calls that launched,
-`cuda_launches` launches of csrc/ray_expand.cu. No backward: the serving
+`ray_expand_plain`. `ray_expand.launches` counts launches of
+csrc/ray_expand.cu. No backward: the serving
 path is not differentiated in the JAX package either, so a CUDA call under
 grad mode with an input that requires a gradient raises
 (`ops._grad.refuse_grad`).
@@ -166,9 +166,7 @@ def _launch(rays, z_samp, grid_dims, coord_bounds, num_freqs, freq_factor):
         r, k, *ints, *floats, stream))
     _build.check(lib, code, "ray_expand")
     ray_expand.launches += 1
-    ray_expand.cuda_launches += 1
     return aux, w8, flat
 
 
-ray_expand.launches = 0        # calls that launched a kernel
-ray_expand.cuda_launches = 0   # of those, launches of csrc/ray_expand.cu
+ray_expand.launches = 0   # launches of csrc/ray_expand.cu

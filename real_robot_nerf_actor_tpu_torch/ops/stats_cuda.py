@@ -20,8 +20,7 @@ sums) per channel; the last block of each group of 16 slabs folds the
 group's partials, and the last of those the groups', in a fixed order.
 `plan` picks the route and the slab sizes; rows that are not whole 16
 bytes (or C > 2048, or an unaligned base) take plain loads in the same
-kernel. `spatial_stats_3d.launches` counts calls that launched,
-`cuda_launches` those of this kernel.
+kernel. `spatial_stats_3d.launches` counts its launches.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 `spatial_stats_3d_plain`, the same function in plain PyTorch. No backward:
@@ -169,13 +168,11 @@ def _launch(feature, temperature):
 
     _build.check(lib, _build.on_device(dev, launch), "spatial_stats_3d")
     spatial_stats_3d.launches += 1
-    spatial_stats_3d.cuda_launches += 1
     spatial_stats_3d.last_plan = pl
     return out
 
 
-spatial_stats_3d.launches = 0        # calls that launched a kernel
-spatial_stats_3d.cuda_launches = 0   # of those, launches of csrc/spatial_stats.cu
+spatial_stats_3d.launches = 0        # launches of csrc/spatial_stats.cu
 spatial_stats_3d.last_plan = None    # the StatsPlan of the last launch
 
 

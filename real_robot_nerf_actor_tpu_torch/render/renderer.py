@@ -30,6 +30,14 @@ corner-expanded grid with `ops.grid_sample.FUSED_LERP_BACKEND = "pallas"`,
 through the `corner_lerp` kernel and its VJP. The int8 serving kernels
 refuse grad (`ops/_grad.py`).
 
+Spans (`utils/profiling.named_scope`, recorded only while a profiler
+records or `collect()` is open): `render.frame` around `render_image`, in
+it `render.rays` (frame rays, `expand_corners`, plan gather, tiling), one
+`render.tile` a tile and `render.scatter` (the tiles joined into the
+frame); in each `render_rays` `render.sample` (tighten, coarse or
+occupancy sampling), `render.field` (each `_eval_points`, coarse and
+fine), `render.composite` and `render.resample` (fine sampling).
+
 Every random draw can be passed in (`draws`, `u`, `subset`, `ray_idx`), so a
 test can feed the JAX package's numbers; otherwise it comes from `generator`. The
 entry points run on CUDA unless the caller passes device="cpu", and raise
@@ -62,6 +70,7 @@ from real_robot_nerf_actor_tpu_torch.ops.resnetfc_cuda import (
 from real_robot_nerf_actor_tpu_torch.ops.sampling import (
     normal, sample_coarse, sample_fine, sample_fine_depth, sample_importance_z, uniform)
 from real_robot_nerf_actor_tpu_torch.train.serve import resolve_device
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 
 class OccupancyState(NamedTuple):
@@ -194,31 +203,32 @@ class NeuralRenderer(nn.Module):
                      pre_expanded=False, compact=False, generator=None):
         """Field at (rays x z_samp) -> (rgbs (R,K,3), sigmas (R,K), embeds
         (R,K,D), or the relu'd last hidden (K,R,D) on the kernel path)."""
-        r, k = z_samp.shape
-        pts = rays[:, None, :3] + z_samp[..., None] * rays[:, None, 3:6]
-        if self._fused_int8_active(compact) and pre_expanded:
-            rgbs, sigmas, embeds = self._eval_points_fused_int8(voxel_feat, rays, z_samp)
-        else:
-            dirs = rays[:, None, 3:6].expand(pts.shape)
-            out = self.field(voxel_feat, pts.reshape(1, r * k, 3),
-                             dirs.reshape(1, r * k, 3), coarse=coarse,
-                             expanded=pre_expanded, compact_heads=compact)
-            rgbs = out["rgb"].reshape(r, k, 3)
-            sigmas = out["sigma"].reshape(r, k)
-            embeds = out["hidden" if compact else "embed"].reshape(r, k, -1)
-        if self.cfg.noise_std > 0.0:
-            if noise is None:
-                noise = normal(sigmas.shape, sigmas, generator)
-            sigmas = sigmas + noise.to(sigmas) * self.cfg.noise_std
-        if self.cfg.field.mask_outside:
-            # the kernels bypass the field's own mask, and noise would undo
-            # it on the plain path: re-applied here
-            b = torch.as_tensor(self.cfg.field.coord_bounds, dtype=pts.dtype,
-                                device=pts.device)
-            canon = (pts - b[:3]) / (b[3:] - b[:3])
-            inb = ((canon >= 0.0) & (canon <= 1.0)).all(dim=-1)
-            sigmas = torch.where(inb, sigmas, torch.zeros_like(sigmas))
-        return rgbs, sigmas, embeds
+        with named_scope("render.field"):
+            r, k = z_samp.shape
+            pts = rays[:, None, :3] + z_samp[..., None] * rays[:, None, 3:6]
+            if self._fused_int8_active(compact) and pre_expanded:
+                rgbs, sigmas, embeds = self._eval_points_fused_int8(voxel_feat, rays, z_samp)
+            else:
+                dirs = rays[:, None, 3:6].expand(pts.shape)
+                out = self.field(voxel_feat, pts.reshape(1, r * k, 3),
+                                 dirs.reshape(1, r * k, 3), coarse=coarse,
+                                 expanded=pre_expanded, compact_heads=compact)
+                rgbs = out["rgb"].reshape(r, k, 3)
+                sigmas = out["sigma"].reshape(r, k)
+                embeds = out["hidden" if compact else "embed"].reshape(r, k, -1)
+            if self.cfg.noise_std > 0.0:
+                if noise is None:
+                    noise = normal(sigmas.shape, sigmas, generator)
+                sigmas = sigmas + noise.to(sigmas) * self.cfg.noise_std
+            if self.cfg.field.mask_outside:
+                # the kernels bypass the field's own mask, and noise would undo
+                # it on the plain path: re-applied here
+                b = torch.as_tensor(self.cfg.field.coord_bounds, dtype=pts.dtype,
+                                    device=pts.device)
+                canon = (pts - b[:3]) / (b[3:] - b[:3])
+                inb = ((canon >= 0.0) & (canon <= 1.0)).all(dim=-1)
+                sigmas = torch.where(inb, sigmas, torch.zeros_like(sigmas))
+            return rgbs, sigmas, embeds
 
     def _expand_rays_int8(self, voxel_feat, rays, z_samp):
         """ray_expand over (rays x z_samp), rays padded to a multiple of its
@@ -334,10 +344,11 @@ class NeuralRenderer(nn.Module):
                    pre_expanded=False, compact=False, generator=None):
         rgbs, sigmas, embeds = self._eval_points(voxel_feat, rays, z_samp, coarse, noise,
                                                  pre_expanded, compact, generator)
-        out = composite(z_samp, rays, rgbs, sigmas, embeds, white_bkgd=self.cfg.white_bkgd,
-                        embeds_kmajor=self._fused_int8_active(compact) and pre_expanded)
-        if compact:
-            out = out._replace(embed=self._project_embed(out.embed, out.weights.sum(-1)))
+        with named_scope("render.composite"):
+            out = composite(z_samp, rays, rgbs, sigmas, embeds, white_bkgd=self.cfg.white_bkgd,
+                            embeds_kmajor=self._fused_int8_active(compact) and pre_expanded)
+            if compact:
+                out = out._replace(embed=self._project_embed(out.embed, out.weights.sum(-1)))
         return out
 
     # ----------------------------------------------------------- occupancy
@@ -429,84 +440,95 @@ class NeuralRenderer(nn.Module):
         late = self._late_embed_active()
         occ_mode = c.sampling_mode == "occupancy" and occ is not None
         probe = occ_mode and c.occ_probes > 0
-        if occ_mode:
-            bounds = torch.as_tensor(c.field.coord_bounds, dtype=rays.dtype,
-                                     device=rays.device)
-            if c.occ_tighten:
-                rays = tighten_rays(rays, occ.aabb, bounds)
-            if probe:
-                z_coarse = sample_occupancy(rays, occ.pooled, c.n_coarse, bounds,
-                                            c.occ_probes, c.occ_floor, u=d.get("coarse_u"),
-                                            jitter=d.get("coarse_jitter"),
-                                            generator=generator)
+        with named_scope("render.sample"):
+            if occ_mode:
+                bounds = torch.as_tensor(c.field.coord_bounds, dtype=rays.dtype,
+                                         device=rays.device)
+                if c.occ_tighten:
+                    rays = tighten_rays(rays, occ.aabb, bounds)
+                if probe:
+                    z_coarse = sample_occupancy(rays, occ.pooled, c.n_coarse, bounds,
+                                                c.occ_probes, c.occ_floor, u=d.get("coarse_u"),
+                                                jitter=d.get("coarse_jitter"),
+                                                generator=generator)
+                else:
+                    z_coarse = sample_coarse(rays, c.n_coarse, c.lindisp,
+                                             u=d.get("coarse_u"), generator=generator)
             else:
                 z_coarse = sample_coarse(rays, c.n_coarse, c.lindisp, u=d.get("coarse_u"),
                                          generator=generator)
-        else:
-            z_coarse = sample_coarse(rays, c.n_coarse, c.lindisp, u=d.get("coarse_u"),
-                                     generator=generator)
         # the proposal sampler's coarse pass is its own small MLP on the plain
         # path (no compaction); only the fine pass reaches the kernels
         compact = late and not c.field.use_proposal
         vals_c = self._eval_points(voxel_feat, rays, z_coarse, True, d.get("noise_coarse"),
                                    pre_expanded, compact, generator)
         kmajor = self._fused_int8_active(compact) and pre_expanded
-        coarse = composite(z_coarse, rays, *vals_c, white_bkgd=c.white_bkgd,
-                           embeds_kmajor=kmajor)
-        if compact:
-            coarse = coarse._replace(embed=self._project_embed(
-                coarse.embed, coarse.weights.sum(-1)))
+        with named_scope("render.composite"):
+            coarse = composite(z_coarse, rays, *vals_c, white_bkgd=c.white_bkgd,
+                               embeds_kmajor=kmajor)
+            if compact:
+                coarse = coarse._replace(embed=self._project_embed(
+                    coarse.embed, coarse.weights.sum(-1)))
         out = {"coarse": coarse}
         if not c.using_fine:
             return out
-        new = []
-        if c.n_fine - c.n_fine_depth > 0:
-            nf = c.n_fine - c.n_fine_depth
-            if probe:
-                new.append(sample_importance_z(z_coarse, coarse.weights, nf,
-                                               u=d.get("fine_u"), t=d.get("fine_jitter"),
-                                               generator=generator))
+        with named_scope("render.resample"):
+            new = []
+            if c.n_fine - c.n_fine_depth > 0:
+                nf = c.n_fine - c.n_fine_depth
+                if probe:
+                    new.append(sample_importance_z(z_coarse, coarse.weights, nf,
+                                                   u=d.get("fine_u"), t=d.get("fine_jitter"),
+                                                   generator=generator))
+                else:
+                    new.append(sample_fine(rays, coarse.weights, nf, c.n_coarse, c.lindisp,
+                                           u=d.get("fine_u"), jitter=d.get("fine_jitter"),
+                                           generator=generator))
+            if c.n_fine_depth > 0:
+                new.append(sample_fine_depth(rays, coarse.depth.detach(), c.n_fine_depth,
+                                             c.depth_std, eps=d.get("fine_depth_eps"),
+                                             generator=generator))
+            z_new = torch.cat(new, dim=-1)
+            # the fine pass's samples: the new ones sorted (proposal), the
+            # new ones (coarse reused) or the union sorted
+            if c.field.use_proposal:
+                z_fine = torch.sort(z_new, dim=-1).values
+            elif c.reuse_coarse and self.field.share_mlp:
+                z_fine = z_new
             else:
-                new.append(sample_fine(rays, coarse.weights, nf, c.n_coarse, c.lindisp,
-                                       u=d.get("fine_u"), jitter=d.get("fine_jitter"),
-                                       generator=generator))
-        if c.n_fine_depth > 0:
-            new.append(sample_fine_depth(rays, coarse.depth.detach(), c.n_fine_depth,
-                                         c.depth_std, eps=d.get("fine_depth_eps"),
-                                         generator=generator))
-        z_new = torch.cat(new, dim=-1)
+                z_fine = torch.sort(torch.cat([z_coarse, z_new], dim=-1), dim=-1).values
         if c.field.use_proposal:
             # the fine output composites only the new samples, through the
             # full field
-            z_sorted = torch.sort(z_new, dim=-1).values
-            out["fine"] = self._eval_pass(voxel_feat, rays, z_sorted, False,
+            out["fine"] = self._eval_pass(voxel_feat, rays, z_fine, False,
                                           d.get("noise_fine"), pre_expanded, late, generator)
         elif c.reuse_coarse and self.field.share_mlp:
             # evaluate only the new samples, composite the union without
             # sorting (order-free weights, segment-wise weighted sums)
-            vals_n = self._eval_points(voxel_feat, rays, z_new, False, d.get("noise_fine"),
+            vals_n = self._eval_points(voxel_feat, rays, z_fine, False, d.get("noise_fine"),
                                        pre_expanded, compact, generator)
-            z_all = torch.cat([z_coarse, z_new], dim=-1)
-            sig_all = torch.cat([vals_c[1], vals_n[1]], dim=-1)
-            w_all = compute_weights_unsorted(z_all, sig_all, rays)
-            kc = z_coarse.shape[-1]
-            w_c, w_n = w_all[:, :kc], w_all[:, kc:]
-            rgb = (w_c[..., None] * vals_c[0]).sum(-2) + (w_n[..., None] * vals_n[0]).sum(-2)
-            if kmajor:
-                embed = (torch.einsum("bk,kbd->bd", w_c, vals_c[2].float())
-                         + torch.einsum("bk,kbd->bd", w_n, vals_n[2].float()))
-            else:
-                embed = ((w_c[..., None] * vals_c[2]).sum(-2)
-                         + (w_n[..., None] * vals_n[2]).sum(-2))
-            if compact:
-                embed = self._project_embed(embed, w_all.sum(-1))
-            depth = (w_c * z_coarse).sum(-1) + (w_n * z_new).sum(-1)
-            if c.white_bkgd:
-                rgb = rgb + (1.0 - w_all.sum(1)[..., None])
-            out["fine"] = CompositeOut(weights=w_all, rgb=rgb, embed=embed, depth=depth)
+            with named_scope("render.composite"):
+                z_all = torch.cat([z_coarse, z_new], dim=-1)
+                sig_all = torch.cat([vals_c[1], vals_n[1]], dim=-1)
+                w_all = compute_weights_unsorted(z_all, sig_all, rays)
+                kc = z_coarse.shape[-1]
+                w_c, w_n = w_all[:, :kc], w_all[:, kc:]
+                rgb = ((w_c[..., None] * vals_c[0]).sum(-2)
+                       + (w_n[..., None] * vals_n[0]).sum(-2))
+                if kmajor:
+                    embed = (torch.einsum("bk,kbd->bd", w_c, vals_c[2].float())
+                             + torch.einsum("bk,kbd->bd", w_n, vals_n[2].float()))
+                else:
+                    embed = ((w_c[..., None] * vals_c[2]).sum(-2)
+                             + (w_n[..., None] * vals_n[2]).sum(-2))
+                if compact:
+                    embed = self._project_embed(embed, w_all.sum(-1))
+                depth = (w_c * z_coarse).sum(-1) + (w_n * z_new).sum(-1)
+                if c.white_bkgd:
+                    rgb = rgb + (1.0 - w_all.sum(1)[..., None])
+                out["fine"] = CompositeOut(weights=w_all, rgb=rgb, embed=embed, depth=depth)
         else:
-            z_all = torch.sort(torch.cat([z_coarse, z_new], dim=-1), dim=-1).values
-            out["fine"] = self._eval_pass(voxel_feat, rays, z_all, False,
+            out["fine"] = self._eval_pass(voxel_feat, rays, z_fine, False,
                                           d.get("noise_fine"), pre_expanded, late,
                                           generator)
         return out
@@ -551,45 +573,50 @@ class NeuralRenderer(nn.Module):
         is background. draws: one render_rays draws mapping per tile."""
         cfg = self.cfg
         h, w = cfg.image_height, cfg.image_width
-        rays = self.frame_rays(tgt_pose, focal, c_principal)
-        expanded = self._should_expand(rays.shape[0], voxel_feat)
-        if expanded:
-            with torch.profiler.record_function("expand_corners"):
-                voxel_feat = expand_corners_to(voxel_feat, cfg.field.dtype)
-        n = rays.shape[0]
-        if plan is not None:
-            rays_sel = rays[plan.idx.clamp(max=n - 1)]
-            tile = min(cfg.render_tile, rays_sel.shape[0])
-            tiles = rays_sel.reshape(-1, tile, 8)
-        else:
-            tile = min(cfg.render_tile, n)
-            n_pad = (-n) % tile
-            pad = torch.zeros((n_pad, 8), dtype=rays.dtype, device=rays.device)
-            pad[:, 6], pad[:, 7] = cfg.z_near, cfg.z_far
-            tiles = torch.cat([rays, pad]).reshape(-1, tile, 8)
-        if draws is not None and len(draws) != tiles.shape[0]:
-            raise ValueError(f"{len(draws)} draws for {tiles.shape[0]} tiles")
-        rgbs, embeds, depths = [], [], []
-        for i in range(tiles.shape[0]):
-            o = self.render_rays(voxel_feat, tiles[i], generator, pre_expanded=expanded,
-                                 occ=occ, draws=None if draws is None else draws[i])
-            f = o.get("fine", o["coarse"])
-            rgbs.append(f.rgb)
-            embeds.append(f.embed)
-            depths.append(f.depth)
-        rgb, embed, depth = torch.cat(rgbs), torch.cat(embeds), torch.cat(depths)
-        if plan is not None:
-            bg = 1.0 if cfg.white_bkgd else 0.0
-            full_rgb = torch.full((n + 1, 3), bg, dtype=rgb.dtype, device=rgb.device)
-            full_embed = torch.zeros((n + 1, embed.shape[-1]), dtype=embed.dtype,
-                                     device=embed.device)
-            full_depth = torch.zeros((n + 1,), dtype=depth.dtype, device=depth.device)
-            full_rgb[plan.idx] = rgb          # pads land on row n, dropped
-            full_embed[plan.idx] = embed
-            full_depth[plan.idx] = depth
-            rgb, embed, depth = full_rgb, full_embed, full_depth
-        return (rgb[:n].reshape(h, w, 3), embed[:n].reshape(h, w, -1),
-                depth[:n].reshape(h, w))
+        with named_scope("render.frame"):
+            with named_scope("render.rays"):
+                rays = self.frame_rays(tgt_pose, focal, c_principal)
+                expanded = self._should_expand(rays.shape[0], voxel_feat)
+                if expanded:
+                    with named_scope("expand_corners"):
+                        voxel_feat = expand_corners_to(voxel_feat, cfg.field.dtype)
+                n = rays.shape[0]
+                if plan is not None:
+                    rays_sel = rays[plan.idx.clamp(max=n - 1)]
+                    tile = min(cfg.render_tile, rays_sel.shape[0])
+                    tiles = rays_sel.reshape(-1, tile, 8)
+                else:
+                    tile = min(cfg.render_tile, n)
+                    n_pad = (-n) % tile
+                    pad = torch.zeros((n_pad, 8), dtype=rays.dtype, device=rays.device)
+                    pad[:, 6], pad[:, 7] = cfg.z_near, cfg.z_far
+                    tiles = torch.cat([rays, pad]).reshape(-1, tile, 8)
+            if draws is not None and len(draws) != tiles.shape[0]:
+                raise ValueError(f"{len(draws)} draws for {tiles.shape[0]} tiles")
+            rgbs, embeds, depths = [], [], []
+            for i in range(tiles.shape[0]):
+                with named_scope("render.tile"):
+                    o = self.render_rays(voxel_feat, tiles[i], generator,
+                                         pre_expanded=expanded, occ=occ,
+                                         draws=None if draws is None else draws[i])
+                    f = o.get("fine", o["coarse"])
+                    rgbs.append(f.rgb)
+                    embeds.append(f.embed)
+                    depths.append(f.depth)
+            with named_scope("render.scatter"):
+                rgb, embed, depth = torch.cat(rgbs), torch.cat(embeds), torch.cat(depths)
+                if plan is not None:
+                    bg = 1.0 if cfg.white_bkgd else 0.0
+                    full_rgb = torch.full((n + 1, 3), bg, dtype=rgb.dtype, device=rgb.device)
+                    full_embed = torch.zeros((n + 1, embed.shape[-1]), dtype=embed.dtype,
+                                             device=embed.device)
+                    full_depth = torch.zeros((n + 1,), dtype=depth.dtype, device=depth.device)
+                    full_rgb[plan.idx] = rgb          # pads land on row n, dropped
+                    full_embed[plan.idx] = embed
+                    full_depth[plan.idx] = depth
+                    rgb, embed, depth = full_rgb, full_embed, full_depth
+                return (rgb[:n].reshape(h, w, 3), embed[:n].reshape(h, w, -1),
+                        depth[:n].reshape(h, w))
 
     # ---------------------------------------------------------------- loss
     def rendering_loss(self, voxel_feat, gt_rgb, gt_pose, focal, generator=None,

@@ -16,8 +16,8 @@ One step, on one scene:
     * MSE(coord residual, 0) of both levels; `mask_feat` zeroes the
     targets on background pixels;
   - one backward, one AdamW step (train/trainer.py `Optimizer`).
-The profiler sees the ranges featurenerf.encode, .render (rays, render,
-losses), .backward and .optimizer.
+Spans (`utils/profiling.named_scope`): featurenerf.encode, .render (rays,
+render, losses), .backward and .optimizer.
 
 `scene_data` stages every scene on the device once; per step only
 `src_ord` changes, drawn with numpy in the JAX package's order. Every draw
@@ -36,7 +36,6 @@ from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from real_robot_nerf_actor_tpu_torch.models.blocks import init_weights
 from real_robot_nerf_actor_tpu_torch.models.pixelnerf import PixelNerfConfig, PixelNerfNet
@@ -47,6 +46,7 @@ from real_robot_nerf_actor_tpu_torch.render.renderer import psnr
 from real_robot_nerf_actor_tpu_torch.train.serve import resolve_device
 from real_robot_nerf_actor_tpu_torch.train.trainer import (
     Optimizer, TrainConfig, Trainer, TrainState)
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +173,10 @@ class FeatureNerfTrainer:
         source views src_ord."""
         cfg = self.cfg
         _, h, w, _ = batch["images"].shape
-        with record_function("featurenerf.encode"):
+        with named_scope("featurenerf.encode"):
             enc = self.encode(net, batch["images"][src_ord], batch["poses"][src_ord],
                               batch["focal"])
-        with record_function("featurenerf.render"):
+        with named_scope("featurenerf.render"):
             rays = gen_rays(batch["poses"], w, h, batch["focal"], cfg.z_near,
                             cfg.z_far)[v, y, x]
             out = self.renderer(net).render_rays(enc, rays, generator, train=True,
@@ -242,9 +242,9 @@ class FeatureNerfTrainer:
         net.zero_grad(set_to_none=True)
         loss, metrics = self.compute_losses(net, batch, v, y, x, src_ord, generator,
                                             render_draws)
-        with record_function("featurenerf.backward"):
+        with named_scope("featurenerf.backward"):
             loss.backward()
-        with record_function("featurenerf.optimizer"):
+        with named_scope("featurenerf.optimizer"):
             state.optimizer.step()
         state.step += 1
         return state, {k: m.detach() for k, m in metrics.items()}

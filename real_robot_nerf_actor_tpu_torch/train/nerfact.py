@@ -48,7 +48,6 @@ from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, 
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from real_robot_nerf_actor_tpu_torch.data.synthetic import (
     make_camera_arc, make_synthetic_scene)
@@ -63,6 +62,7 @@ from real_robot_nerf_actor_tpu_torch.ops.voxelize import voxelize
 from real_robot_nerf_actor_tpu_torch.render.renderer import NeuralRenderer, RendererConfig
 from real_robot_nerf_actor_tpu_torch.train.peract import PerActConfig, PerActTrainer
 from real_robot_nerf_actor_tpu_torch.train.trainer import Optimizer, Trainer, TrainState
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,10 +139,10 @@ class NerfActTrainer(PerActTrainer):
                render_draws: Optional[Mapping[str, torch.Tensor]] = None):
         """The step's forward: (total loss, metrics, the policy's outputs),
         the metrics still in the graph (see train_step for the arguments).
-        The profiler sees train_step.forward (aug, voxelization, policy, BC
-        losses) and .render."""
+        Spans: train_step.forward (aug, voxelization, policy, BC losses,
+        each its own span: see PerActTrainer._forward_bc) and .render."""
         jc = self.jcfg
-        with record_function("train_step.forward"):
+        with named_scope("train_step.forward"):
             out, aug, bc_total, metrics = self._forward_bc(state.module["policy"], batch,
                                                            generator, draws)
             gt_pose = batch["gt_pose"]
@@ -150,7 +150,7 @@ class NerfActTrainer(PerActTrainer):
                 # the camera follows the scene's shift, so its pixels stay aligned
                 gt_pose = gt_pose.clone()
                 gt_pose[:, :3, 3] += aug.shift
-        with record_function("train_step.render"):
+        with named_scope("train_step.render"):
             view = [None if t is None else t[:1] for t in (
                 out[3], batch["gt_rgb"], gt_pose, batch["focal"], batch.get("gt_embed"),
                 batch.get("gt_depth"))]
@@ -179,17 +179,21 @@ class NerfActTrainer(PerActTrainer):
         takes sample 0. draws: the SE(3) uniforms (B, 3); ray_idx and
         render_draws: `rendering_loss`'s draws; each drawn from `generator`
         when absent. Returns the state and the metrics (device tensors),
-        `loss_total` among them. The profiler sees four ranges:
-        train_step.forward (aug, voxelization, policy, BC losses), .render,
-        .backward and .optimizer."""
-        state.module.zero_grad(set_to_none=True)
-        total, metrics, _ = self.losses(state, batch, generator, draws, ray_idx, render_draws)
-        with record_function("train_step.backward"):
-            total.backward()
-        with record_function("train_step.optimizer"):
-            state.optimizer.step()
-        state.step += 1
-        return state, {k: m.detach() for k, m in metrics.items()}
+        `loss_total` among them. Spans (`utils/profiling`): train_step
+        around the step, in it train_step.forward (aug, voxelization,
+        policy, BC losses), .render, .backward (the VJPs' own spans,
+        backward.*, open inside it, on autograd's device thread on CUDA)
+        and .optimizer (optimizer.finite_check in it)."""
+        with named_scope("train_step"):
+            state.module.zero_grad(set_to_none=True)
+            total, metrics, _ = self.losses(state, batch, generator, draws, ray_idx,
+                                            render_draws)
+            with named_scope("train_step.backward"):
+                total.backward()
+            with named_scope("train_step.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            return state, {k: m.detach() for k, m in metrics.items()}
 
     # ---------------------------------------------------------------- data
     def synthetic_data(self, batch_size: int = 1, seed: int = 0,

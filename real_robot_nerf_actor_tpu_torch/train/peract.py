@@ -27,7 +27,6 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from real_robot_nerf_actor_tpu_torch.data.replay import PointCloudSample, pad_point_cloud
 from real_robot_nerf_actor_tpu_torch.data.synthetic import (
@@ -40,6 +39,7 @@ from real_robot_nerf_actor_tpu_torch.ops.voxelize import VoxelizerSpec, voxelize
 from real_robot_nerf_actor_tpu_torch.train.serve import resolve_device
 from real_robot_nerf_actor_tpu_torch.train.trainer import (
     Optimizer, TrainConfig, Trainer, TrainState)
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 
 def iter_transitions(rng: np.random.Generator, train_demos, num_transitions,
@@ -178,36 +178,41 @@ class PerActTrainer:
     def _forward_bc(self, net, batch, generator=None, draws=None):
         """SE(3) aug, voxelization, the forward in train mode and
         `bc_losses`: (network outputs, the aug (None without it), the BC
-        loss, its metrics)."""
+        loss, its metrics). Each phase is a span: train_step.augment,
+        .voxelize, .policy and .bc_loss."""
         c = self.cfg
         v = c.model.voxel_size
         points = batch["points"]
         aug = None
-        if c.use_se3_aug:
-            if draws is None:
-                gen_dev = generator.device if generator is not None else "cpu"
-                draws = torch.rand((points.shape[0], 3), generator=generator,
-                                   device=gen_dev) * 2.0 - 1.0
-            aug = apply_se3_augmentation(points, batch["kf_xyz"], self.bounds,
-                                         self.trans_aug_range, v,
-                                         symmetric_clamp=c.se3_symmetric_clamp, u=draws)
-            points = aug.pcd
-            action_trans = aug.action_trans[:, 1]   # next keyframe
-            proprio_trans = aug.action_trans[:, 0]  # current keyframe
-        else:
-            idx = point_to_voxel_index(batch["kf_xyz"], v, self.bounds)
-            action_trans, proprio_trans = idx[:, 1], idx[:, 0]
-        proprio = torch.cat([proprio_trans.float(), batch["proprio"][:, 3:]], dim=-1)
-        vox = voxelize(points, batch["colors"], self.bounds, c.voxelizer,
-                       valid=batch["valid"])
-        out = net(vox, proprio, batch["lang"], train=True)
-        action = DiscreteAction(trans=action_trans, rot_grip=batch["rot_grip"],
-                                collision=batch["collision"])
-        total, metrics = bc_losses(
-            out[0], out[1], out[2], action, v, c.model.num_rotation_classes,
-            q_trans_aux=out[-1] if c.model.aux_trans_head else None,
-            patch_size=c.model.voxel_patch_size, lambda_aux=c.lambda_aux_trans,
-            trans_smooth=c.trans_label_smooth, z_loss=c.z_loss)
+        with named_scope("train_step.augment"):
+            if c.use_se3_aug:
+                if draws is None:
+                    gen_dev = generator.device if generator is not None else "cpu"
+                    draws = torch.rand((points.shape[0], 3), generator=generator,
+                                       device=gen_dev) * 2.0 - 1.0
+                aug = apply_se3_augmentation(points, batch["kf_xyz"], self.bounds,
+                                             self.trans_aug_range, v,
+                                             symmetric_clamp=c.se3_symmetric_clamp, u=draws)
+                points = aug.pcd
+                action_trans = aug.action_trans[:, 1]   # next keyframe
+                proprio_trans = aug.action_trans[:, 0]  # current keyframe
+            else:
+                idx = point_to_voxel_index(batch["kf_xyz"], v, self.bounds)
+                action_trans, proprio_trans = idx[:, 1], idx[:, 0]
+        with named_scope("train_step.voxelize"):
+            proprio = torch.cat([proprio_trans.float(), batch["proprio"][:, 3:]], dim=-1)
+            vox = voxelize(points, batch["colors"], self.bounds, c.voxelizer,
+                           valid=batch["valid"])
+        with named_scope("train_step.policy"):
+            out = net(vox, proprio, batch["lang"], train=True)
+        with named_scope("train_step.bc_loss"):
+            action = DiscreteAction(trans=action_trans, rot_grip=batch["rot_grip"],
+                                    collision=batch["collision"])
+            total, metrics = bc_losses(
+                out[0], out[1], out[2], action, v, c.model.num_rotation_classes,
+                q_trans_aux=out[-1] if c.model.aux_trans_head else None,
+                patch_size=c.model.voxel_patch_size, lambda_aux=c.lambda_aux_trans,
+                trans_smooth=c.trans_label_smooth, z_loss=c.z_loss)
         return out, aug, total, metrics
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
@@ -222,18 +227,19 @@ class PerActTrainer:
         them they come from `generator`. Updates state.module and
         state.optimizer in place; returns the state and the loss metrics
         (device tensors). The parameters' .grad hold this step's gradients
-        afterwards. The profiler sees three ranges: train_step.forward
-        (augmentation, voxelization, forward, losses), .backward and
-        .optimizer."""
-        with record_function("train_step.forward"):
-            state.module.zero_grad(set_to_none=True)
-            total, metrics = self._forward_bc(state.module, batch, generator, draws)[2:]
-        with record_function("train_step.backward"):
-            total.backward()
-        with record_function("train_step.optimizer"):
-            state.optimizer.step()
-        state.step += 1
-        return state, {k: m.detach() for k, m in metrics.items()}
+        afterwards. Spans (`utils/profiling`): train_step around the step,
+        in it train_step.forward (the spans of `_forward_bc`), .backward
+        and .optimizer."""
+        with named_scope("train_step"):
+            with named_scope("train_step.forward"):
+                state.module.zero_grad(set_to_none=True)
+                total, metrics = self._forward_bc(state.module, batch, generator, draws)[2:]
+            with named_scope("train_step.backward"):
+                total.backward()
+            with named_scope("train_step.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            return state, {k: m.detach() for k, m in metrics.items()}
 
     # ------------------------------------------------------------ inference
     def predict(self, state: TrainState, vox, proprio, lang):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from real_robot_nerf_actor_tpu_torch.utils.logger import Logger
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,9 +214,10 @@ class Optimizer:
         if self.sync is not None:
             grads = self.sync.reduce_grads(self.params, grads)
         if c.skip_nonfinite > 0:
-            finite = _all_finite(grads)
-            if self.sync is not None:
-                finite = self.sync.all_finite(finite)
+            with named_scope("optimizer.finite_check"):   # the host waits for the flag
+                finite = _all_finite(grads)
+                if self.sync is not None:
+                    finite = self.sync.all_finite(finite)
             self.last_finite = finite
             if not finite:
                 self.notfinite_count += 1

@@ -178,11 +178,10 @@ def test_spatial_stats_3d(cuda, shape, dtype):
     a batch of three (plain loads, bf16 rows of 24 bytes), more channels
     than one block takes (plain loads in groups of 512)."""
     x = _randn(shape, 0, 0.3).to(cuda, dtype)
-    launches, cuda_launches = spatial_stats_3d.launches, spatial_stats_3d.cuda_launches
+    launches = spatial_stats_3d.launches
     got = spatial_stats_3d(x)
     torch.cuda.synchronize()
     assert spatial_stats_3d.launches == launches + 1
-    assert spatial_stats_3d.cuda_launches == cuda_launches + 1
     assert spatial_stats_3d.last_plan == plan(shape, x.element_size(), x.data_ptr(),
                                               torch.cuda.get_device_properties(cuda)
                                               .multi_processor_count)
@@ -552,7 +551,7 @@ def test_tiny_joint_step_kernels_match_plain(cuda, monkeypatch):
                 state.module["policy"].encoder_3d.Conv_0.weight.mul_(0.05)
         sd0 = {k: v.clone() for k, v in state.module.state_dict().items()}
         batch = next(tr.synthetic_data(batch_size=2, seed=1))
-        counts = (conv3d_k3.launches, conv3d_k3.vjp_calls, corner_lerp.cuda_launches,
+        counts = (conv3d_k3.launches, conv3d_k3.vjp_calls, corner_lerp.launches,
                   corner_lerp.vjp_calls)
         state, metrics = tr.train_step(state, batch, **draws)
         torch.cuda.synchronize()
@@ -564,7 +563,7 @@ def test_tiny_joint_step_kernels_match_plain(cuda, monkeypatch):
         runs[conv] = dict(sd=sd0, grads=grads, m={k: v.item() for k, v in metrics.items()},
                           launches=tuple(b - a for a, b in zip(counts, (
                               conv3d_k3.launches, conv3d_k3.vjp_calls,
-                              corner_lerp.cuda_launches, corner_lerp.vjp_calls))))
+                              corner_lerp.launches, corner_lerp.vjp_calls))))
     assert runs["pallas"]["launches"] == (1, 1, 2, 2)
     assert runs["conv2d"]["launches"] == (0, 0, 0, 0)
     got, want = runs["pallas"], runs["conv2d"]
@@ -648,11 +647,10 @@ def test_ray_expand_equals_plain(cuda, r, k, faces):
         rays, z = (t.to(cuda) for t in _rays_leaving_every_face(r, k))
     else:
         rays, z, _ = _serve_inputs(cuda, r, k, dims=(2, 2, 2))    # the grid is not used
-    launches, cuda_launches = ray_expand.launches, ray_expand.cuda_launches
+    launches = ray_expand.launches
     got = ray_expand(rays, z, dims, BOUNDS)
     torch.cuda.synchronize()
     assert ray_expand.launches == launches + 1
-    assert ray_expand.cuda_launches == cuda_launches + 1
     want = ray_expand_plain(rays, z, dims, BOUNDS)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -689,11 +687,10 @@ def test_corner_lerp(cuda, case):
     rows = (src[1:] if odd else src[:-1]).view(m, 8 * c)
     w = torch.rand((8, m), generator=torch.Generator().manual_seed(1)).to(cuda)
     assert rows.is_contiguous() and vector_path(rows) == vector
-    launches, cuda_launches = corner_lerp.launches, corner_lerp.cuda_launches
+    launches = corner_lerp.launches
     got = corner_lerp(rows, w)
     torch.cuda.synchronize()
     assert corner_lerp.launches == launches + 1
-    assert corner_lerp.cuda_launches == cuda_launches + 1
     assert got.dtype == dtype and got.shape == (m, c)
     want = corner_lerp_plain(rows, w).float()
     no_last = corner_lerp_plain(rows, w * torch.tensor([1.0] * 7 + [0.0], device=cuda)[:, None])
