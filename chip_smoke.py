@@ -20,7 +20,12 @@ Phases, each reported on its own line:
      launch time that bounds a single timed call of a few tens of us. The
      spatial_stats_3d lines add the device time with the L2 evicted before
      each call, check that two calls give the same bits, and that the
-     tolerance sees the kernel's last slab dropped;
+     tolerance sees the kernel's last slab dropped. The conv3d_wgrad lines
+     (the weight gradients of the joint step's eleven fp32 UNet convs, then
+     the deep UNet's, off the path) hold the kernel to its plain version in
+     float64 within the fp32 chain's bound, with a planted fault (L's far
+     faces dropped) that must fail it, two calls bit-equal, and give cuDNN's
+     time as the modules call it and on contiguous NCDHW operands;
   3. act: PolicyServer with the configs/serve.yaml policy (UNet encoder,
      100^3 x 10 voxels, 220000 points, 2048 x 512 latents, depth 6, bf16,
      random weights from a seeded generator) and the three kernel knobs on,
@@ -83,10 +88,12 @@ Phases, each reported on its own line:
      full width (see nerfact_phase) in three settings stepping in turns:
      (a) the file as written, (b) the kernels (conv3d_k3 and corner_lerp
      with their VJPs on the corner-expanded grid), (c) (b)'s path with the
-     plain versions. Step p50, device time split into forward, render,
-     backward and optimizer, device events, peak memory, losses, launch
-     counts; (b)'s first-step gradients against (c)'s within (c)'s own
-     bf16-vs-fp32 gap, and two planted lerp faults that must fail that
+     plain versions, the UNet's weight gradients included (a and b take
+     conv3d_wgrad, 11 a step). Step p50, device time split into forward,
+     render, backward and optimizer, device events, peak memory, losses,
+     launch counts; (b)'s first-step gradients against (c)'s within (c)'s
+     own bf16-vs-fp32 gap, and two planted lerp faults and the UNet's
+     weight gradients with flipped taps, which must each fail that
      check. Then b and c with the field's proposal sampler: p50, device
      time, launches, and b's first-step gradients and render loss held to
      c's by the same rule; the coarse embed loss left in must fail it.
@@ -586,6 +593,24 @@ def bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def unet_convs(deep, cin=10, head=64, size=100):
+    """(name, kind, Cin, Cout, k, stride, input side) of each conv of the
+    policy's shallow UNet (8-64 channels) or the deep one (32-256) over a
+    size^3 x cin volume, in the order of the forward."""
+    ch = (32, 64, 128, 256) if deep else (8, 16, 32, 64)
+    sides = [size]
+    for _ in range(3):
+        sides.append((sides[-1] - 1) // 2 + 1)
+    out = [("cell0", "conv", cin, ch[0], 3, 1, sides[0])]
+    for i in range(3):
+        out += [(f"down{i}", "conv", ch[i], ch[i + 1], 3, 2, sides[i]),
+                (f"cell{i + 1}", "conv", ch[i + 1], ch[i + 1], 3, 1, sides[i + 1])]
+    for j, i in enumerate((3, 2, 1)):
+        out.append((f"deconv{j}", "transposed", ch[i], ch[i - 1], 3, 2, sides[i]))
+    out.append(("head", "conv", ch[0], head, 1, 1, sides[0]))
+    return out
 
 
 def random_field_state(torch, renderer, seed):
@@ -1438,7 +1463,7 @@ def train_phase(torch, dev, card):
         fail(f"train: a kernel without a backward did not refuse grad: {refused}")
 
 
-def nerfact_phase(torch, dev, card):
+def nerfact_phase(torch, dev, card, summary):
     """Phase 7: the NeRF-Actor joint train step of configs/nerfact.yaml at
     full width (UNet encoder with BatchNorm in train mode, bf16 policy,
     depth 6, 100^3 x 10 voxels, 2048 x 512 latents, 220000 padded points,
@@ -1455,26 +1480,30 @@ def nerfact_phase(torch, dev, card):
          fused_gather true and FUSED_LERP_BACKEND "pallas" (corner_lerp
          and its VJP, one a pass);
       c: b's corner-expanded path with the kernels' plain versions:
-         conv2d with final_conv_as_plain weights, and the lerp's plain
+         conv2d with final_conv_as_plain weights, the lerp's plain
          version (lerp_cuda.corner_lerp_plain, autograd as its backward)
-         in place of the kernel on the same "pallas" route. The "xla"
+         in place of the kernel on the same "pallas" route, and the UNet
+         convs' weight gradients by conv3d_wgrad_plain in place of the
+         conv3d_wgrad kernel (a and b take the kernel). The "xla"
          route's nested lerp rounds the weights and every lerp stage to
          bf16, so its field gradients carry other bf16 noise than the
          kernel's one rounding of an fp32 sum: on an H100 b stood up to
          2.07x c's own bf16-vs-fp32 gap from c on that route, and as far
          from the fp32 step.
     Fails unless b launches the conv forward (wgmma) and its VJP once a
-    step and the lerp and its VJP twice, a and c neither; loss_total falls
-    and every BatchNorm running statistic moved after step 1 in every
-    setting; b's first-step gradients, tensor by tensor and with the
-    rendering loss's gradient of d0 as one more tensor, lie within c's own
-    bf16-vs-fp32 gap (at least 2^-7, two bf16 ulps: see the tolerance
-    below), and two planted faults each fail that check: the lerp's d_rows
-    zeroed, and corner weights 0 and 1 swapped in the kernel's forward."""
+    step and the lerp and its VJP twice, a and c neither, and a and b the
+    weight-gradient kernel 11 times a step (the UNet's convs), c never;
+    loss_total falls and every BatchNorm running statistic moved after
+    step 1 in every setting; b's first-step gradients, tensor by tensor and
+    with the rendering loss's gradient of d0 as one more tensor, lie within
+    c's own bf16-vs-fp32 gap (at least 2^-7, two bf16 ulps: see the
+    tolerance below), and three planted faults each fail that check: the
+    lerp's d_rows zeroed, corner weights 0 and 1 swapped in the kernel's
+    forward, and the UNet's weight gradients with their taps flipped."""
     from torch.profiler import ProfilerActivity, profile
 
     from real_robot_nerf_actor_tpu_torch.convert import final_conv_as_plain
-    from real_robot_nerf_actor_tpu_torch.ops import grid_sample, lerp_cuda
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_wgrad_cuda, grid_sample, lerp_cuda
     from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
     from real_robot_nerf_actor_tpu_torch.ops.lerp_cuda import corner_lerp
     from real_robot_nerf_actor_tpu_torch.train.nerfact import NerfActConfig, NerfActTrainer
@@ -1482,13 +1511,17 @@ def nerfact_phase(torch, dev, card):
 
     base = from_dict(NerfActConfig, NERFACT)
 
+    wgrad = conv3d_wgrad_cuda.conv3d_wgrad
+
     def setting(name, fp32=False, proposal=False):
-        """(config, FUSED_LERP_BACKEND, the lerp it calls) of setting a, b
-        or c; with proposal, the field's proposal sampler on."""
-        conv, expand, lerp, fn = {
-            "a": ("conv2d", "auto", "xla", corner_lerp),
-            "b": ("pallas", True, "pallas", corner_lerp),
-            "c": ("conv2d", True, "pallas", lerp_cuda.corner_lerp_plain)}[name]
+        """(config, FUSED_LERP_BACKEND, the lerp it calls, the UNet convs'
+        weight gradient) of setting a, b or c; with proposal, the field's
+        proposal sampler on."""
+        conv, expand, lerp, fn, wg = {
+            "a": ("conv2d", "auto", "xla", corner_lerp, wgrad),
+            "b": ("pallas", True, "pallas", corner_lerp, wgrad),
+            "c": ("conv2d", True, "pallas", lerp_cuda.corner_lerp_plain,
+                  conv3d_wgrad_cuda.conv3d_wgrad_plain)}[name]
         model = dataclasses.replace(base.peract.model, conv_backend=conv)
         field = dataclasses.replace(base.renderer.field, use_proposal=proposal)
         if fp32:
@@ -1497,7 +1530,7 @@ def nerfact_phase(torch, dev, card):
         return dataclasses.replace(
             base, peract=dataclasses.replace(base.peract, model=model),
             renderer=dataclasses.replace(base.renderer, fused_gather=expand,
-                                         field=field)), lerp, fn
+                                         field=field)), lerp, fn, wg
 
     t0 = time.perf_counter()
     cfg_b = setting("b")[0]
@@ -1526,8 +1559,8 @@ def nerfact_phase(torch, dev, card):
 
     sd_proposal = {}
 
-    def fresh(name, fp32=False, proposal=False, coarse_embed_fault=False):
-        cfg, lerp, fn = setting(name, fp32, proposal)
+    def fresh(name, fp32=False, proposal=False, coarse_embed_fault=False, wgrad_fn=None):
+        cfg, lerp, fn, wg = setting(name, fp32, proposal)
         tr = NerfActTrainer(cfg, device=dev)
         state = tr.init_state(torch.Generator().manual_seed(0))
         sd = sd_b if name == "b" else sd_plain
@@ -1554,13 +1587,21 @@ def nerfact_phase(torch, dev, card):
             return loss, m
 
         tr.renderer.rendering_loss = rendering_loss
-        return dict(tr=tr, state=state, lerp=lerp, lerp_fn=fn, batch=batch)
+        return dict(tr=tr, state=state, lerp=lerp, lerp_fn=fn, wgrad_fn=wgrad_fn or wg,
+                    batch=batch)
 
     def route(run):
-        """The run's lerp route: the expanded path calls
-        lerp_cuda.corner_lerp, which c replaces by its plain version."""
+        """The run's lerp route and the UNet convs' weight gradient: the
+        expanded path calls lerp_cuda.corner_lerp and Conv3dWgrad's backward
+        conv3d_wgrad_cuda.conv3d_wgrad, which c replaces by their plain
+        versions."""
         grid_sample.FUSED_LERP_BACKEND = run["lerp"]
         lerp_cuda.corner_lerp = run["lerp_fn"]
+        conv3d_wgrad_cuda.conv3d_wgrad = run["wgrad_fn"]
+
+    def unroute():
+        grid_sample.FUSED_LERP_BACKEND, lerp_cuda.corner_lerp = "xla", corner_lerp
+        conv3d_wgrad_cuda.conv3d_wgrad = wgrad
 
     def step(run):
         route(run)
@@ -1612,7 +1653,18 @@ def nerfact_phase(torch, dev, card):
                                                        "wgmma_launches"),
                 ("conv3d_k3_vjp", conv3d_k3, "vjp_calls"),
                 ("corner_lerp", corner_lerp, "launches"),
-                ("corner_lerp_vjp", corner_lerp, "vjp_calls"))
+                ("corner_lerp_vjp", corner_lerp, "vjp_calls"),
+                ("conv3d_wgrad", wgrad, "launches"))
+
+    def want_launches(name, keys):
+        """Launches a step: the conv kernel and its VJP once and the lerp
+        and its VJP twice in b; the UNet's eleven weight gradients on the
+        kernel in a and b."""
+        if name == "c":
+            return dict.fromkeys(keys, 0)
+        return {k: n * (11 if k == "conv3d_wgrad" else 0 if name == "a"
+                        else 2 if k.startswith("corner_lerp") else 1) for k in keys}
+
     runs = {name: dict(fresh(name), times=[], losses=[], peak_gb=0.0,
                        launches=dict.fromkeys((c[0] for c in counters), 0))
             for name in "abc"}
@@ -1640,15 +1692,14 @@ def nerfact_phase(torch, dev, card):
                 run["bn_moved"] = all(
                     not torch.equal(b, bn_before[k])
                     for k, b in run["state"].module.named_buffers())
-    per_step = {"a": 0, "b": 1, "c": 0}
     for name, run in runs.items():
         times, losses, launches = run["times"], run["losses"], run["launches"]
-        want = {k: n * per_step[name] * (2 if k.startswith("corner_lerp") else 1)
-                for k in launches}
+        want = want_launches(name, launches)
         emit("nerfact", setting=name, config=dict(
                  conv_backend=run["tr"].cfg.model.conv_backend,
                  fused_gather=run["tr"].jcfg.renderer.fused_gather,
-                 fused_lerp_backend=run["lerp"], lerp=run["lerp_fn"].__name__),
+                 fused_lerp_backend=run["lerp"], lerp=run["lerp_fn"].__name__,
+                 unet_wgrad=run["wgrad_fn"].__name__),
              warmup=NERFACT_WARMUP, steps=NERFACT_STEPS, p50_ms=statistics.median(times),
              step_ms=times, loss_first=losses[0], loss_last=losses[-1], losses=losses,
              first_step_metrics=run["metrics"], bn_stats_moved_after_step_1=run["bn_moved"],
@@ -1663,7 +1714,8 @@ def nerfact_phase(torch, dev, card):
             fail(f"nerfact {name}: loss_total on the fixed batch did not fall: {losses}")
         if not run["bn_moved"]:
             fail(f"nerfact {name}: a BatchNorm running statistic did not move in step 1")
-    grid_sample.FUSED_LERP_BACKEND, lerp_cuda.corner_lerp = "xla", corner_lerp
+    unroute()
+    summary["conv3d_wgrad"]["launches"] = runs["b"]["launches"]["conv3d_wgrad"]
 
     # the lerp and its VJP alone at this path's shapes (the coarse pass's
     # 512 x 64 samples, the fine pass's 512 x 32), bf16 rows of the
@@ -1730,7 +1782,8 @@ def nerfact_phase(torch, dev, card):
             worst = max(gp, key=lambda k: gp[k] / tol[k])
             return gp[worst] / tol[worst], worst, {
                 k: gp[k] for k in ("render.d_voxel_feat", "nerf.mlp_coarse.lin_z_0.weight",
-                                   "policy.final.pallas_kernel")}
+                                   "policy.final.pallas_kernel",
+                                   "policy.encoder_3d.ConvBnReLU3D_0.Conv_0.weight")}
 
         ratio, worst, named_gaps = check(grads["b"])
         # b's first step taken once more: zero if the steps reproduce
@@ -1745,9 +1798,18 @@ def nerfact_phase(torch, dev, card):
             swap = [1, 0, 2, 3, 4, 5, 6, 7]
             lerp_cuda._launch = lambda rows, w: launch(rows, w[swap].contiguous())
             faults["corners_0_1_swapped"] = check(one_step("b")[0])
+            lerp_cuda._launch = launch
+
+            def flipped(*a):
+                return wgrad(*a).flip(2, 3, 4)
+
+            # the kernel counts its calls on the module's conv3d_wgrad,
+            # which is this function while the run's route holds
+            flipped.launches = 0
+            faults["unet_wgrad_taps_flipped"] = check(one_step("b", wgrad_fn=flipped)[0])
         finally:
             lerp_cuda.corner_lerp_vjp, lerp_cuda._launch = vjp, launch
-            grid_sample.FUSED_LERP_BACKEND, lerp_cuda.corner_lerp = "xla", corner_lerp
+            unroute()
     emit("nerfact_grad", tensors=len(tol), worst_gap_over_tol=ratio, worst_tensor=worst,
          worst_gap=ratio * tol[worst], worst_tol=tol[worst], gaps=named_gaps,
          repeat_max_gap=repeat, nondeterministic_ops=nondeterministic_ops,
@@ -1789,8 +1851,7 @@ def nerfact_phase(torch, dev, card):
             run["losses"].append(m["loss_total"].item())
     for name, run in prop.items():
         losses, launches = run["losses"], run["launches"]
-        want = {k: n * per_step[name] * (2 if k.startswith("corner_lerp") else 1)
-                for k in launches}
+        want = want_launches(name, launches)
         emit("nerfact_proposal", setting=name, warmup=NERFACT_WARMUP, steps=NERFACT_STEPS,
              p50_ms=statistics.median(run["times"]), step_ms=run["times"],
              loss_first=losses[0], loss_last=losses[-1], launches=launches,
@@ -1826,7 +1887,7 @@ def nerfact_phase(torch, dev, card):
         g_fault, _, m_fault = one_step("b", proposal=True, coarse_embed_fault=True)
         fault_p = check_p(g_fault, m_fault)
         del g_b, g_fault
-    grid_sample.FUSED_LERP_BACKEND, lerp_cuda.corner_lerp = "xla", corner_lerp
+    unroute()
     emit("nerfact_proposal_grad", tensors=len(tol_p), worst_gap_over_tol=ratio_p,
          worst_tensor=worst_p, loss_render_gap=loss_gap_p, loss_render_tol=loss_tol,
          metric_names_equal=keys_p, metrics_b=m_b, metrics_c=m_c,
@@ -5450,6 +5511,7 @@ def main():
     from real_robot_nerf_actor_tpu_torch.ops import _build
     from real_robot_nerf_actor_tpu_torch.ops.attention_cuda import (
         flash_attention, flash_attention_plain)
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_wgrad_cuda
     from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import (
         BRICK, conv3d_k3, conv3d_k3_plain, halo_bytes)
     from real_robot_nerf_actor_tpu_torch.ops.stats_cuda import (
@@ -5593,6 +5655,92 @@ def main():
     record("conv3d_k3", 1, err, ms, plain_ms, b_ms, b_by, lib_ms)
     del x, x_ncdhw, got, want
 
+    # conv3d_wgrad: the weight gradients of the joint step's UNet (the shallow
+    # one: 100^3 x 10 voxels, a 64-channel head, fp32, batch 1), S and L as
+    # the backward hands them over, then the deep UNet's at the same volume
+    # (in no cell: calls_per_step 0). Against the plain version in float64
+    # on the same values, within the fp32 chain's bound: (depth + 1) x 2^-24
+    # of each element's sum of |products|, the depth being a thread's
+    # positions plus the groups and the partials it is summed with (a CPU
+    # estimate at the shallow shapes put the plain version's own fp32 error
+    # at most 0.01 of that bound). Planted fault, on the shallow shapes: L's
+    # three far faces read as zeros (a halo that never stages the volume's
+    # last planes) must exceed twice the bound (that estimate: 9.0x at cell0,
+    # 33-9700x elsewhere). Two calls bit-equal, one count a call. library_ms:
+    # cuDNN's weight gradient alone as the modules hand it the operands
+    # (NCDHW views of NDHWC tensors); library_ncdhw_ms on contiguous copies.
+    conv3d_wgrad, wgrad_plain = conv3d_wgrad_cuda.conv3d_wgrad, conv3d_wgrad_cuda.conv3d_wgrad_plain
+    for unet in ("shallow", "deep"):
+        for cname, conv_kind, cin, cout, k, stride, side in unet_convs(unet == "deep"):
+            pad = 1 if (conv_kind == "conv" and k == 3) else 0
+            out_side = ((side + 2 * pad - k) // stride + 1 if conv_kind == "conv"
+                        else (side - 1) * stride + k)
+            x = randn(1, side, side, side, cin, dtype=torch.float32)
+            g = randn(1, out_side, out_side, out_side, cout, dtype=torch.float32)
+            s, l = (x, g) if conv_kind == "transposed" else (g, x)
+            launched = conv3d_wgrad.launches
+            got = conv3d_wgrad(s, l, k, stride, pad)
+            again = conv3d_wgrad(s, l, k, stride, pad)
+            torch.cuda.synchronize()
+            if conv3d_wgrad.launches != launched + 2:
+                fail(f"conv3d_wgrad {unet} {cname}: two calls counted "
+                     f"{conv3d_wgrad.launches - launched}")
+            s64, l64 = s.double(), l.double()
+            want = wgrad_plain(s64, l64, k, stride, pad)
+            pl = conv3d_wgrad_cuda.plan(1, tuple(s.shape[1:4]), s.shape[-1], l.shape[-1], k,
+                                        stride, s.dtype, conv3d_wgrad_cuda._vec(s, l), 0)
+            bricks = 1
+            for n, b in zip(s.shape[1:4], pl.brick):
+                bricks *= -(-n // b)
+            depth = (-(-bricks // pl.grid_x) * -(-math.prod(pl.brick) // pl.groups)
+                     + pl.groups + pl.grid_x)
+            tol = ((depth + 1) * 2.0 ** -24
+                   * wgrad_plain(s64.abs(), l64.abs(), k, stride, pad)).clamp_min(1e-300)
+            err = (got.double() - want).abs()
+            ratio = (err / tol).max().item()
+            l64[:, -1] = 0
+            l64[:, :, -1] = 0
+            l64[:, :, :, -1] = 0
+            fault = ((wgrad_plain(s64, l64, k, stride, pad) - want).abs() / tol).max().item()
+            del s64, l64, want, tol
+            ms = median_ms(torch, lambda: conv3d_wgrad(s, l, k, stride, pad), 20)
+            dev_ms = profiled_ms(torch, lambda: conv3d_wgrad(s, l, k, stride, pad), 20)
+            plain_ms = median_ms(torch, lambda: wgrad_plain(s, l, k, stride, pad), 3)
+            w0 = torch.zeros((cin, cout, k, k, k) if conv_kind == "transposed"
+                             else (cout, cin, k, k, k), device=dev)
+
+            def cudnn(xv, gv):
+                return torch.ops.aten.convolution_backward(
+                    gv, xv, w0, None, (stride,) * 3, (pad,) * 3, (1, 1, 1),
+                    conv_kind == "transposed", (0, 0, 0), 1, (False, True, False))[1]
+
+            xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+            xn_c, gn_c = xn.contiguous(), gn.contiguous()
+            lib_ms = median_ms(torch, lambda: cudnn(xn, gn), 10)
+            lib_dev_ms = profiled_ms(torch, lambda: cudnn(xn, gn), 5)
+            lib_ncdhw_ms = median_ms(torch, lambda: cudnn(xn_c, gn_c), 10)
+            positions = s.numel() // s.shape[-1]
+            b_ms, b_by = bound(2.0 * positions * s.shape[-1] * l.shape[-1] * k ** 3,
+                               4.0 * (s.numel() + l.numel() + got.numel()), "float32")
+            calls = int(unet == "shallow")
+            emit("kernel", name="conv3d_wgrad", unet=unet, conv=cname, kind=conv_kind,
+                 shape=[cin, cout, k, stride, side], s_shape=list(s.shape), l_shape=list(l.shape),
+                 dtype="float32", plan=dataclasses.asdict(pl), depth=depth,
+                 calls_per_step=calls, max_abs_err=err.max().item(), max_err_over_tol=ratio,
+                 far_faces_dropped_over_tol=fault, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, library_device_ms=lib_dev_ms, library_ncdhw_ms=lib_ncdhw_ms,
+                 bound_ms=b_ms, bound_by=b_by, card=card)
+            if not ratio <= 1.0:
+                fail(f"conv3d_wgrad {unet} {cname}: error {ratio} x its bound")
+            if not torch.equal(got, again):
+                fail(f"conv3d_wgrad {unet} {cname}: two calls differ")
+            if calls and not fault > 2.0:
+                fail(f"conv3d_wgrad {cname}: the bound does not see L's far faces dropped "
+                     f"({fault} x the bound)")
+            if calls:
+                record("conv3d_wgrad", calls, err.max().item(), ms, plain_ms, b_ms, b_by, lib_ms)
+            del x, g, s, l, got, again, err, xn_c, gn_c, w0
+
     # spatial_stats_3d: d0 (fp32), dec (fp32), u (bf16), each on inputs of
     # scale 0.3 (a few rows carry a channel's sums at the temperature 0.01)
     # and 0.01 (every row counts, the kernel's last, shorter slab included).
@@ -5718,7 +5866,7 @@ def main():
                    "flash_attention_wgmma": 8, "conv3d_k3_wgmma": 1}
     if per_step != want_counts:
         fail(f"launches per act step {per_step}, want {want_counts}")
-    for name in summary:
+    for name in ("flash_attention", "conv3d_k3", "spatial_stats_3d"):
         summary[name]["launches"] = launches[name]
     # the kernels line counts the launches of the wgmma/TMA designs
     summary["flash_attention"]["launches"] = launches["flash_attention_wgmma"]
@@ -5804,7 +5952,7 @@ def main():
     train_phase(torch, dev, card)
 
     # ---------------------------------------------------------- 7. nerfact
-    nerfact_phase(torch, dev, card)
+    nerfact_phase(torch, dev, card, summary)
 
     # ----------------------------------------------------------- 8. replay
     replay_phase(torch, dev, card)
@@ -5852,6 +6000,8 @@ def main():
         "fused_gather_resnetfc_int8": (
             "cuda", "real_robot_nerf_actor_tpu_torch/csrc/resnetfc_int8.cu",
             "real_robot_nerf_actor_tpu/ops/resnetfc_pallas.py:444"),
+        # replaces no TPU kernel (the JAX package leaves the UNet's backward to XLA)
+        "conv3d_wgrad": ("cuda", "real_robot_nerf_actor_tpu_torch/csrc/conv3d_wgrad.cu", None),
     }
     kernels = []
     for name, (route, source, replaces) in info.items():

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from real_robot_nerf_actor_tpu_torch.ops import conv3d_wgrad_cuda
 from real_robot_nerf_actor_tpu_torch.ops.conv3d_cuda import conv3d_k3
 
 LRELU_SLOPE = 0.02
@@ -126,7 +127,9 @@ class Dense(nn.Module):
 
 class Conv3d(nn.Module):
     """flax nn.Conv over NDHWC; weight (out, in, k, k, k) in torch's layout.
-    Stride and padding are arguments of the call, as the blocks choose them."""
+    Stride and padding are arguments of the call, as the blocks choose them.
+    `ops/conv3d_wgrad_cuda.conv3d` computes it: F.conv3d, with the weight's
+    gradient on the hand-written kernel where fp32 / float64 is trained."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  use_bias: bool = True, kernel_init: InitSpec = LECUN_NORMAL,
@@ -148,15 +151,16 @@ class Conv3d(nn.Module):
     def forward(self, x, stride: int = 1, padding: int = 0):
         dt = _dtype_for(x, self.weight, self.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt), b,
-                     stride=stride, padding=padding)
+        y = conv3d_wgrad_cuda.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt), b,
+                                     stride=stride, padding=padding)
         return y.permute(0, 2, 3, 4, 1)
 
 
 class ConvTranspose3d(nn.Module):
     """flax nn.ConvTranspose with VALID padding, as torch computes it: weight
     (in, out, k, k, k) holds the flax kernel flipped (convert.py does the
-    flip), and the output has (n-1)*s + k cells."""
+    flip), and the output has (n-1)*s + k cells. Computed as Conv3d is
+    (`ops/conv3d_wgrad_cuda.conv_transpose3d`)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int, use_bias: bool = True,
@@ -180,8 +184,8 @@ class ConvTranspose3d(nn.Module):
     def forward(self, x):
         dt = _dtype_for(x, self.weight, self.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv_transpose3d(x.to(dt).permute(0, 4, 1, 2, 3),
-                               self.weight.to(dt), b, stride=self.stride)
+        y = conv3d_wgrad_cuda.conv_transpose3d(x.to(dt).permute(0, 4, 1, 2, 3),
+                                               self.weight.to(dt), b, stride=self.stride)
         return y.permute(0, 2, 3, 4, 1)
 
 

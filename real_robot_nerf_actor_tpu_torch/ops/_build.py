@@ -72,6 +72,13 @@ _SIGNATURES = {
         "gather_resnetfc_int8_fwd": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11
         + [ctypes.c_void_p],
     },
+    "conv3d_wgrad": {
+        # s, l, part, out; n, dp, hp, wp, A, dl, hl, wl, B, k, stride, pad,
+        # bz, by, bx, ta, tb, groups, grid_x, dtype, vec; stream
+        "conv3d_wgrad_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 21 + [ctypes.c_void_p],
+        # k, stride, bz, by, bx, ta, tb, groups, dtype, vec; int* blocks an SM (out)
+        "conv3d_wgrad_occupancy": [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -835,3 +835,145 @@ def test_fused_resnetfc_refuses_wrong_weights(cuda):
         rf.fused_resnetfc_int8(zi, packed, quantized=True)
     with pytest.raises(ValueError, match="wgmma design does not take"):
         rf.fused_resnetfc_int8(zi, packed, quantized=False, design="wgmma")
+
+
+# conv3d_wgrad at the joint step's UNet shapes: (kind, Cin, Cout, k, stride,
+# input side); S, L and the plain version as the backward hands them over.
+# Then the other fp32 / float64 convs of the policy at configs/peract.yaml's
+# widths, with their padding last: `final` (k3 on the edge-padded 102^3,
+# 128 -> 64), up0's k5 on the edge-padded 24^3 and its k5 s5 transposed conv
+_WGRAD_CASES = [("conv", 10, 8, 3, 1, 100), ("transposed", 16, 8, 3, 2, 50),
+                ("conv", 8, 64, 1, 1, 100), ("conv", 64, 64, 3, 1, 13),
+                ("conv", 16, 32, 3, 2, 50),
+                ("conv", 128, 64, 3, 1, 102, 0), ("conv", 128, 64, 5, 1, 24, 0),
+                ("transposed", 64, 64, 5, 5, 20)]
+
+
+def _wgrad_operands(cuda, kind, cin, cout, k, stride, side, pad=None, seed=0,
+                    dtype=torch.float32):
+    if pad is None:
+        pad = 1 if (kind == "conv" and k == 3) else 0
+    out_side = (side + 2 * pad - k) // stride + 1 if kind == "conv" else (side - 1) * stride + k
+    x = _randn((1, side, side, side, cin), seed).to(cuda, dtype)
+    g = _randn((1, out_side, out_side, out_side, cout), seed + 1).to(cuda, dtype)
+    s, l = (x, g) if kind == "transposed" else (g, x)
+    return s, l, pad
+
+
+@pytest.mark.parametrize("case", _WGRAD_CASES, ids=[f"{c[0]}-{c[1]}to{c[2]}-k{c[3]}s{c[4]}-{c[5]}"
+                                                    + (f"p{c[6]}" if len(c) > 6 else "")
+                                                    for c in _WGRAD_CASES])
+def test_conv3d_wgrad(cuda, case):
+    """The kernel against the plain version in float64, within 1e-12 of each
+    element's sum of |products| (the two sum in other orders, in chains of
+    up to 10^6 float64 additions whose roundings fall at random, about
+    sqrt(n) x 1.1e-16 of that sum: 1.1e-13 at 10^6); fp32 against float64 on the
+    same values within the fp32 chain's bound, (depth + 1) x 2^-24 of that
+    sum, the depth being a thread's positions plus the groups and the
+    partials it is summed with; two calls bit-equal; one count a call."""
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_wgrad_cuda as cw
+    kind, cin, cout, k, stride, side = case[:6]
+    s, l, pad = _wgrad_operands(cuda, *case)
+    s64, l64 = s.double(), l.double()
+    abs_sum = cw.conv3d_wgrad_plain(s64.abs(), l64.abs(), k, stride, pad)
+    want = cw.conv3d_wgrad_plain(s64, l64, k, stride, pad)
+    before = cw.conv3d_wgrad.launches
+    got64 = cw.conv3d_wgrad(s64, l64, k, stride, pad)
+    got = cw.conv3d_wgrad(s, l, k, stride, pad)
+    again = cw.conv3d_wgrad(s, l, k, stride, pad)
+    torch.cuda.synchronize()
+    assert cw.conv3d_wgrad.launches == before + 3
+    assert got.shape == want.shape == (s.shape[-1], l.shape[-1], k, k, k)
+    assert got64.dtype == torch.float64 and got.dtype == torch.float32
+    assert ((got64 - want).abs() <= 1e-12 * abs_sum).all()
+    pl = cw.plan(1, tuple(s.shape[1:4]), s.shape[-1], l.shape[-1], k, stride, torch.float32,
+                 cw._vec(s, l), cuda.index or 0)
+    npos = pl.brick[0] * pl.brick[1] * pl.brick[2]
+    bricks = 1
+    for n, b in zip(s.shape[1:4], pl.brick):
+        bricks *= -(-n // b)
+    depth = -(-bricks // pl.grid_x) * -(-npos // pl.groups) + pl.groups + pl.grid_x
+    assert ((got.double() - got64).abs() <= (depth + 1) * 2.0 ** -24 * abs_sum).all()
+    assert torch.equal(got, again)
+
+
+def test_conv3d_wgrad_deep_unet_widths_against_cudnn(cuda):
+    """The deep UNet's widest convs (128 -> 256 at 25 -> 13, 256 -> 256 at
+    13^3, the 256 -> 128 transposed conv from 13^3) and its first (10 -> 32
+    at 100^3): the kernel against cuDNN's weight gradient in float64 (1e-12
+    of the largest |dW|), and both timed in fp32 (printed)."""
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_wgrad_cuda as cw
+    for case in [("conv", 128, 256, 3, 2, 25), ("conv", 256, 256, 3, 1, 13),
+                 ("transposed", 256, 128, 3, 2, 13), ("conv", 10, 32, 3, 1, 100)]:
+        kind, cin, cout, k, stride, side = case
+        times = {}
+        for dtype in (torch.float64, torch.float32):
+            s, l, pad = _wgrad_operands(cuda, *case, seed=3, dtype=dtype)
+            x, g = (s, l) if kind == "transposed" else (l, s)
+            w = torch.zeros((cin, cout, k, k, k) if kind == "transposed"
+                            else (cout, cin, k, k, k), device=cuda, dtype=dtype)
+
+            def cudnn():
+                return torch.ops.aten.convolution_backward(
+                    g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), w, None, (stride,) * 3,
+                    (pad,) * 3, (1, 1, 1), kind == "transposed", (0, 0, 0), 1,
+                    (False, True, False))[1]
+
+            def kernel():
+                return cw.conv3d_wgrad(s, l, k, stride, pad)
+
+            if dtype == torch.float64:
+                want, got = cudnn(), kernel()
+                assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+                continue
+            for name, fn in (("kernel", kernel), ("cudnn", cudnn)):
+                fn()
+                torch.cuda.synchronize()
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(5):
+                    fn()
+                t1.record()
+                torch.cuda.synchronize()
+                times[name] = t0.elapsed_time(t1) / 5
+        print(f"conv3d_wgrad deep {case}: kernel {times['kernel']:.3f} ms, "
+              f"cuDNN {times['cudnn']:.3f} ms")
+
+
+@pytest.mark.parametrize("deep", [False, True], ids=["shallow", "deep"])
+def test_unet_train_gradients_through_the_wgrad_kernel(cuda, deep):
+    """The UNets' train-mode gradients on the card through Conv3dWgrad (the
+    kernel) against the plain convs (cuDNN: F.conv3d and F.conv_transpose3d
+    in place of the route) on the same weights and input, in float64:
+    within 1e-12 of each gradient's largest |g|; 11 calls."""
+    import contextlib
+    import copy
+
+    import torch.nn.functional as F
+
+    from real_robot_nerf_actor_tpu_torch.models import blocks as tb
+    from real_robot_nerf_actor_tpu_torch.ops import conv3d_wgrad_cuda as cw
+    cls = tb.MultiLayer3DEncoder if deep else tb.MultiLayer3DEncoderShallow
+    m = tb.init_weights(cls(10, 64), torch.Generator().manual_seed(0)).double().to(cuda)
+    ref = copy.deepcopy(m)
+    plain = pytest.MonkeyPatch()
+    x = _randn((1, 24, 24, 24, 10), 4).double().to(cuda)
+    r = None
+    grads = []
+    for net in (m, ref):
+        if net is ref:
+            plain.setattr(cw, "conv3d", F.conv3d)
+            plain.setattr(cw, "conv_transpose3d", F.conv_transpose3d)
+        with contextlib.ExitStack() as stack:
+            stack.callback(plain.undo)
+            xi = x.clone().requires_grad_()
+            out = net(xi, train=True)
+            out = out[0] if isinstance(out, tuple) else out
+            r = _randn(tuple(out.shape), 5).double().to(cuda) if r is None else r
+            before = cw.conv3d_wgrad.launches
+            (out * r).sum().backward()
+        grads.append({"input": xi.grad, **{n: p.grad for n, p in net.named_parameters()}})
+        assert cw.conv3d_wgrad.launches - before == (11 if net is m else 0)
+    for name, want in grads[1].items():
+        got = grads[0][name]
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max(), name

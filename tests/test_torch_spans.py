@@ -15,7 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from real_robot_nerf_actor_tpu_torch.data.synthetic import _look_at
-from real_robot_nerf_actor_tpu_torch.models import NerfFieldConfig, PerceiverConfig
+from real_robot_nerf_actor_tpu_torch.models import NerfFieldConfig, PerceiverConfig, blocks
 from real_robot_nerf_actor_tpu_torch.ops import VoxelizerSpec
 from real_robot_nerf_actor_tpu_torch.ops.grid_sample import (
     expand_corners_to, grid_sample_3d_fastbwd)
@@ -191,8 +191,13 @@ def test_a_joint_step_gives_its_phases_and_the_vjp_spans():
     # the render loss's passes, and the VJP of the corner expansion
     render = set(_names(rec, _children(rec, kids["train_step.render"])))
     assert set(TILE_PHASES) <= render
+    # then the fp32 policy's convs (Conv3dWgrad): `final`, up0's two and the
+    # UNet's eleven, which autograd reaches last
+    convs = [m for m in state.module.modules()
+             if isinstance(m, (blocks.Conv3d, blocks.ConvTranspose3d))]
+    assert len(convs) == 14
     assert _names(rec, _children(rec, kids["train_step.backward"])) == [
-        "backward.expand_corners"]
+        "backward.expand_corners"] + ["backward.unet_conv"] * 14
 
 
 def test_summary_self_time_is_the_duration_less_the_childrens():
