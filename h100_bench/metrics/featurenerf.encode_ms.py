@@ -1,0 +1,6 @@
+"""featurenerf.encode_ms: device ms a step of the kernels launched inside the program's
+host range `featurenerf.encode` (None where the program opens no such range)."""
+
+
+def read(ctx):
+    return ctx.range_ms("featurenerf.encode")

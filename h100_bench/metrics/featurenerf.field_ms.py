@@ -1,0 +1,6 @@
+"""featurenerf.field_ms: device ms a step of the kernels launched inside the program's
+host range `featurenerf.field` (None where the program opens no such range)."""
+
+
+def read(ctx):
+    return ctx.range_ms("featurenerf.field")

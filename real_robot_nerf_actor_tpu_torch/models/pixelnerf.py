@@ -10,6 +10,11 @@ through ResnetFC, which averages the views at combine_layer. Heads: rgb
 (sigmoid), sigma (relu), embed [, coord residual against the view-averaged
 camera-frame point].
 
+Spans (`utils/profiling.named_scope`), one each a field call:
+featurenerf.project (the points into the source views, uv, the latent
+lookup) and featurenerf.field (the positional code, ResnetFC and the
+heads).
+
 Aug-NeRF hooks (use_input_aug / use_output_aug, train=True only): gaussian
 noise on the query points and on the raw output, scaled by
 aug_noise_scale. The noise comes from the `aug_noise` argument ({"input":
@@ -31,6 +36,7 @@ from real_robot_nerf_actor_tpu_torch.models.resnetfc import ResnetFC
 from real_robot_nerf_actor_tpu_torch.ops.rays import (
     PositionalEncodingSpec, positional_encoding)
 from real_robot_nerf_actor_tpu_torch.ops.sampling import normal
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,32 +110,34 @@ class PixelNerfNet(nn.Module):
                                   generator) * cfg.aug_noise_scale
 
         rot = poses_w2c[:, :3, :3]
-        xyz_cam = torch.einsum("nij,bj->nbi", rot, xyz) + poses_w2c[:, None, :3, 3]
-        z = xyz_cam[..., 2:]
-        uv = -xyz_cam[..., :2] / torch.where(z.abs() < 1e-8, torch.full_like(z, 1e-8), z)
-        uv = uv * focal + c
-        uv = uv / torch.tensor([w, h], dtype=uv.dtype, device=uv.device) * 2.0
-        lat = bilinear_sample_2d(latent, uv)                        # (NS, B, C)
+        with named_scope("featurenerf.project"):
+            xyz_cam = torch.einsum("nij,bj->nbi", rot, xyz) + poses_w2c[:, None, :3, 3]
+            z = xyz_cam[..., 2:]
+            uv = -xyz_cam[..., :2] / torch.where(z.abs() < 1e-8, torch.full_like(z, 1e-8), z)
+            uv = uv * focal + c
+            uv = uv / torch.tensor([w, h], dtype=uv.dtype, device=uv.device) * 2.0
+            lat = bilinear_sample_2d(latent, uv)                        # (NS, B, C)
 
-        feat = positional_encoding(xyz_cam, self.code)
-        if cfg.use_viewdirs:
-            if viewdirs is None:
-                raise ValueError("use_viewdirs needs viewdirs")
-            feat = torch.cat([feat, torch.einsum("nij,bj->nbi", rot, viewdirs)], dim=-1)
+        with named_scope("featurenerf.field"):
+            feat = positional_encoding(xyz_cam, self.code)
+            if cfg.use_viewdirs:
+                if viewdirs is None:
+                    raise ValueError("use_viewdirs needs viewdirs")
+                feat = torch.cat([feat, torch.einsum("nij,bj->nbi", rot, viewdirs)], dim=-1)
 
-        # interleave views: (NS, B, D) -> (B * NS, D), so combine reduces views
-        lat = lat.transpose(0, 1).reshape(b * ns, -1)
-        feat = feat.transpose(0, 1).reshape(b * ns, -1)
-        out, _ = self.mlp((lat, feat), num_views=ns)
-        out = out.reshape(b, cfg.d_out)
-        if cfg.use_output_aug and aug:
-            out = out + self._aug("output", out.shape, out, aug_noise,
-                                  generator) * cfg.aug_noise_scale
+            # interleave views: (NS, B, D) -> (B * NS, D), so combine reduces views
+            lat = lat.transpose(0, 1).reshape(b * ns, -1)
+            feat = feat.transpose(0, 1).reshape(b * ns, -1)
+            out, _ = self.mlp((lat, feat), num_views=ns)
+            out = out.reshape(b, cfg.d_out)
+            if cfg.use_output_aug and aug:
+                out = out + self._aug("output", out.shape, out, aug_noise,
+                                      generator) * cfg.aug_noise_scale
 
-        res = {"rgb": torch.sigmoid(out[..., :3]), "sigma": F.relu(out[..., 3])}
-        if cfg.regress_coord:
-            res["embed"] = out[..., 4:-3]
-            res["coord_residual"] = out[..., -3:] - xyz_cam.mean(dim=0)
-        else:
-            res["embed"] = out[..., 4:]
+            res = {"rgb": torch.sigmoid(out[..., :3]), "sigma": F.relu(out[..., 3])}
+            if cfg.regress_coord:
+                res["embed"] = out[..., 4:-3]
+                res["coord_residual"] = out[..., -3:] - xyz_cam.mean(dim=0)
+            else:
+                res["embed"] = out[..., 4:]
         return res

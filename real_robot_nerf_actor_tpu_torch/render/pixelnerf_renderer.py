@@ -9,6 +9,11 @@ also returns `<level>_coord`: the plain mean of the residual over a ray's
 samples (not alpha-composited). `extract_radiance` exports the per-sample
 radiance of the coarse pass (the NeRF -> point cloud path).
 
+Spans (`utils/profiling.named_scope`), one each a pass: featurenerf.sample
+(the pass's depths: stratified, or importance and depth samples sorted
+with the coarse ones) and featurenerf.composite; the field's own spans lie
+between them (models/pixelnerf.py).
+
 Draws: every sampler takes its draws from `draws` (coarse_u, fine_u,
 fine_jitter, fine_depth_eps; and with the field's aug hooks on,
 aug_input_coarse, aug_output_coarse, aug_input_fine, aug_output_fine) or
@@ -25,6 +30,7 @@ from real_robot_nerf_actor_tpu_torch.models.pixelnerf import PixelNerfNet
 from real_robot_nerf_actor_tpu_torch.ops.compositing import composite
 from real_robot_nerf_actor_tpu_torch.ops.sampling import (
     sample_coarse, sample_fine, sample_fine_depth)
+from real_robot_nerf_actor_tpu_torch.utils.profiling import named_scope
 
 # (latent (NS, Hf, Wf, C), poses_w2c (NS, 4, 4), focal (2,), c (2,), (H, W))
 Encoded = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Tuple[int, int]]
@@ -56,9 +62,10 @@ class PixelNerfRenderer:
         out = self.net(latent, poses_w2c, focal, c, image_shape, pts.reshape(r * k, 3),
                        dirs.reshape(r * k, 3), train=train, aug_noise=aug,
                        generator=generator)
-        comp = composite(z_samp, rays, out["rgb"].reshape(r, k, 3),
-                         out["sigma"].reshape(r, k), out["embed"].reshape(r, k, -1),
-                         white_bkgd=self.cfg.white_bkgd)
+        with named_scope("featurenerf.composite"):
+            comp = composite(z_samp, rays, out["rgb"].reshape(r, k, 3),
+                             out["sigma"].reshape(r, k), out["embed"].reshape(r, k, -1),
+                             white_bkgd=self.cfg.white_bkgd)
         return comp, out
 
     def render_rays(self, enc: Encoded, rays: torch.Tensor,
@@ -69,23 +76,25 @@ class PixelNerfRenderer:
         Aug-NeRF hooks."""
         c = self.cfg
         d = dict(draws or {})
-        z_coarse = sample_coarse(rays, c.n_coarse, c.lindisp, u=d.get("coarse_u"),
-                                 generator=generator)
+        with named_scope("featurenerf.sample"):
+            z_coarse = sample_coarse(rays, c.n_coarse, c.lindisp, u=d.get("coarse_u"),
+                                     generator=generator)
         coarse, raw = self._eval(enc, rays, z_coarse, train, "coarse", d, generator)
         out = {"coarse": coarse}
         if "coord_residual" in raw:
             out["coarse_coord"] = raw["coord_residual"].reshape(*z_coarse.shape, 3).mean(1)
         if c.n_fine > 0:
-            samps = [z_coarse]
-            if c.n_fine - c.n_fine_depth > 0:
-                samps.append(sample_fine(rays, coarse.weights, c.n_fine - c.n_fine_depth,
-                                         c.n_coarse, c.lindisp, u=d.get("fine_u"),
-                                         jitter=d.get("fine_jitter"), generator=generator))
-            if c.n_fine_depth > 0:
-                samps.append(sample_fine_depth(rays, coarse.depth.detach(), c.n_fine_depth,
-                                               c.depth_std, eps=d.get("fine_depth_eps"),
-                                               generator=generator))
-            z_all = torch.sort(torch.cat(samps, -1), -1).values
+            with named_scope("featurenerf.sample"):
+                samps = [z_coarse]
+                if c.n_fine - c.n_fine_depth > 0:
+                    samps.append(sample_fine(rays, coarse.weights, c.n_fine - c.n_fine_depth,
+                                             c.n_coarse, c.lindisp, u=d.get("fine_u"),
+                                             jitter=d.get("fine_jitter"), generator=generator))
+                if c.n_fine_depth > 0:
+                    samps.append(sample_fine_depth(rays, coarse.depth.detach(), c.n_fine_depth,
+                                                   c.depth_std, eps=d.get("fine_depth_eps"),
+                                                   generator=generator))
+                z_all = torch.sort(torch.cat(samps, -1), -1).values
             out["fine"], raw_f = self._eval(enc, rays, z_all, train, "fine", d, generator)
             if "coord_residual" in raw_f:
                 out["fine_coord"] = raw_f["coord_residual"].reshape(*z_all.shape, 3).mean(1)

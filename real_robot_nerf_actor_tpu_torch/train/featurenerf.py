@@ -17,7 +17,9 @@ One step, on one scene:
     targets on background pixels;
   - one backward, one AdamW step (train/trainer.py `Optimizer`).
 Spans (`utils/profiling.named_scope`): featurenerf.encode, .render (rays,
-render, losses), .backward and .optimizer.
+render, losses), .backward and .optimizer; inside .render, on each of the
+two passes, .sample, .project, .field and .composite (the renderer's and
+the field's).
 
 `scene_data` stages every scene on the device once; per step only
 `src_ord` changes, drawn with numpy in the JAX package's order. Every draw
